@@ -1,0 +1,178 @@
+"""Two-pass predict latency of the port on one GPU (counterpart of
+``bench.py --mode predict``).
+
+    python -m maskrcnn_tpu_torch.bench --mode predict [--preset fpn_mask]
+        [--batch 1] [--height 800] [--width 1024] [--steps 20]
+        [--roi-align auto] [--profile N]
+
+Serves synthetic requests (seeded random weights with the class scores
+spread as :func:`spread_class_scores` says, float32, TF32 off)
+through :func:`maskrcnn_tpu_torch.eval.predict.make_predict_fn` and prints
+ONE JSON line: p50/p90 milliseconds per request, timed with CUDA events
+after warm-up, with the card's name and power limit and the (ROI, class)
+pairs that clear the score threshold in each of the 4 distinct requests
+(the load of per-class NMS); with ``--profile N``
+also the device's busy share and the kernels that take its time, traced
+over N more requests. Without a GPU it exits non-zero.
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import time
+
+import torch
+
+from maskrcnn_tpu_torch import config as cfg_lib
+from maskrcnn_tpu_torch.data.synthetic import SyntheticRequests
+from maskrcnn_tpu_torch.eval.predict import make_predict_fn
+from maskrcnn_tpu_torch.models.maskrcnn import MaskRCNN
+from maskrcnn_tpu_torch.utils.device import card_name_and_power_limit
+
+# requests served before timing: lazy CUDA and cuDNN set-up, allocator growth
+WARMUP = 3
+
+
+def predict_config(preset: str, batch: int, height: int, width: int,
+                   roi_align: str = "auto") -> cfg_lib.Config:
+    return cfg_lib._rep(cfg_lib.PRESETS[preset](),
+                        train=dict(batch_size=batch, image_size=(height, width)),
+                        model=dict(roi_align=roi_align))
+
+
+def spread_class_scores(model, scale: float = 8.0):
+    """Scale the class-score layer's random weights in place.
+
+    At random init the class logits spread by about 0.25, so every class
+    scores near 1/81, under the 0.05 threshold: no detection is valid and
+    NMS, the merge and pass 2 see only empty slots. Scaled by 8 enough
+    (ROI, class) pairs pass to fill every one of the ``max_detections``
+    slots. That is a chosen load, not a measured property of trained
+    weights; :func:`passing_pairs` counts it per request.
+    """
+    with torch.no_grad():
+        model.head.box.score.weight.mul_(scale)
+    return model
+
+
+def passing_pairs(cfg: cfg_lib.Config, model, predict, requests) -> list[int]:
+    """Serve ``requests`` again, untimed, and count for each the (ROI, class)
+    pairs of pass 1 whose class score clears ``score_thresh``, over all
+    proposal slots: the load that per-class NMS and the merge see."""
+    counts = []
+
+    def count(module, inputs, logits):
+        probs = torch.softmax(logits, dim=-1)[:, 1:]
+        counts.append(int((probs > cfg.eval.score_thresh).sum()))
+
+    handle = model.head.box.score.register_forward_hook(count)
+    try:
+        for req in requests:
+            predict(*req)
+    finally:
+        handle.remove()
+    return counts
+
+
+def time_requests(predict, requests, warmup: int = 3):
+    """Serve ``requests`` (after ``warmup`` unmeasured ones) → (ms per
+    request from CUDA events, Detections per request). Each request's time
+    runs from its enqueue to the end of its last kernel."""
+    for req in requests[:warmup]:
+        predict(*req)
+    torch.cuda.synchronize()
+    times, dets = [], []
+    for req in requests[warmup:]:
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        dets.append(predict(*req))
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end))
+    return times, dets
+
+
+def profile_requests(predict, requests, top: int = 12) -> dict:
+    """Trace ``requests`` with ``torch.profiler`` → the device's busy share
+    of the wall time and the ``top`` kernels by device time per request."""
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for req in requests:
+            predict(*req)
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    kernels = [e for e in prof.key_averages()
+               if e.device_type == torch.autograd.DeviceType.CUDA]
+    busy_ms = sum(e.self_device_time_total for e in kernels) / 1e3
+    kernels.sort(key=lambda e: e.self_device_time_total, reverse=True)
+    n = len(requests)
+    return {
+        "wall_ms_per_request": wall_ms / n,
+        "device_ms_per_request": busy_ms / n,
+        "device_busy_share": busy_ms / wall_ms,
+        "top_kernels_ms_per_request": [
+            [e.key[:90], e.self_device_time_total / 1e3 / n, e.count // n]
+            for e in kernels[:top]],
+    }
+
+
+def percentile(times, q: float) -> float:
+    s = sorted(times)
+    return s[min(len(s) - 1, int(len(s) * q))]
+
+
+def main(argv=None):
+    p = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    p.add_argument("--mode", default="predict", choices=["predict"])
+    p.add_argument("--preset", default="fpn_mask")
+    p.add_argument("--batch", type=int, default=1)
+    p.add_argument("--height", type=int, default=800)
+    p.add_argument("--width", type=int, default=1024)
+    p.add_argument("--steps", type=int, default=20)
+    p.add_argument("--roi-align", default="auto",
+                   choices=["auto", "region", "gather", "pallas", "fused"])
+    p.add_argument("--profile", type=int, default=0, metavar="N",
+                   help="then trace N more requests with torch.profiler and "
+                        "add the device time by kernel to the line")
+    args = p.parse_args(argv)
+
+    if not torch.cuda.is_available():
+        raise SystemExit("bench: no CUDA device; the benchmark runs on the GPU")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+
+    cfg = predict_config(args.preset, args.batch, args.height, args.width,
+                         args.roi_align)
+    model = spread_class_scores(MaskRCNN(cfg, seed=0))
+    predict = make_predict_fn(cfg, model)
+    data = SyntheticRequests(cfg, seed=0)
+    n = WARMUP + args.steps
+    requests = [tuple(data.batch(i % 4)) for i in range(n + args.profile)]
+    times, dets = time_requests(predict, requests[:n], WARMUP)
+    profiled = profile_requests(predict, requests[n:]) if args.profile else {}
+    pairs = passing_pairs(cfg, model, predict, requests[:4])
+    print(json.dumps({
+        "metric": f"predict_p50_ms_{args.preset}_{args.height}x{args.width}"
+                  f"_b{args.batch}",
+        "value": percentile(times, 0.5),
+        "unit": "ms",
+        "p90_ms": percentile(times, 0.9),
+        "steps": args.steps,
+        "valid_detections_mean": sum(int(d.valid.sum()) for d in dets) / len(dets),
+        "passing_pairs_per_request": pairs,
+        "roi_align": args.roi_align,
+        "dtype": "float32",
+        "device": torch.cuda.get_device_name(0),
+        "card": card_name_and_power_limit(),
+        "torch": torch.__version__,
+        **profiled,
+    }))
+
+
+if __name__ == "__main__":
+    main()
