@@ -8,20 +8,32 @@ Phases, in order; any failure exits non-zero before the result is printed:
 1. device: require CUDA, print the torch build and the card; TF32 off for
    matmul and cuDNN, so the card computes in float32 like the CPU;
 2. build: compile every hand-written kernel from the sources in this
-   checkout with ``nvcc`` (sm_90a);
+   checkout with ``nvcc`` (sm_90a), one compiler per source, all at once;
 3. kernels against their plain versions on the card, at the shapes of the
-   main path: the ROIAlign forward on an 800×1024 pyramid (C=256) at batch
+   main paths: the ROIAlign forward on an 800×1024 pyramid (C=256) at batch
    1 and 2, 300 ROIs at 7×7 and 100 at 14×14, in the region and the
-   pallas window geometry, with ROIs on all five levels, thin boxes and
-   windows that run past the end of the buffer; f32 and bf16 features;
-4. the slice: ``fpn_mask`` at full width (ResNet-50-FPN, 80 classes,
+   pallas window geometry, f32 and bf16 features; the region scatter on
+   the cotangent windows of 512 and 2048 train ROIs (20×32 windows, C=256)
+   over the pyramids of batch 2 and 8. ROIs lie on all five levels, many on
+   one object, some with windows that run past the end of the buffer;
+4. the serving path: ``fpn_mask`` at full width (ResNet-50-FPN, 80 classes,
    800×1024, batch 1, seeded random weights, class scores spread to a
    chosen load that fills every detection slot) serves synthetic requests
    through ``make_predict_fn``; every kernel's launch count is read around
    that run; one request is served again on the CPU (plain versions) and
    must agree;
-5. the kernels line: each kernel on the inputs the main path gave it,
-   held against its plain version, with both times and its bound.
+5. the train path: the same model at batch 2 takes one warm-up step and
+   three counted steps on synthetic batches through ``make_train_step``
+   (12000/2000 proposals, 256 sampled ROIs per image); the launch counts
+   are read around the three steps (forward kernel 2 per step, region
+   scatter 1 per step), every loss term must be finite and every parameter,
+   frozen-BN scales included, must have moved;
+6. one train step from the same weights, batch and sampler draws on the card
+   and on the CPU (plain versions), at full width on a 256×320 canvas with
+   1000/256 proposals: losses and parameter updates must agree;
+7. the kernels line: each kernel on the inputs the main paths gave it, held
+   against its plain version, with both times, its bound and, where one
+   PyTorch call computes the same function, that call's time.
 
 The last three lines of standard output are the card's name and power limit,
 the kernels JSON line and ``{"ok": true, "device": {...}}``.
@@ -36,6 +48,7 @@ import statistics
 import subprocess
 import sys
 import time
+from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
 import torch
@@ -46,28 +59,50 @@ from maskrcnn_tpu_torch.bench import (
     predict_config,
     spread_class_scores,
     time_requests,
+    time_train_steps,
 )
-from maskrcnn_tpu_torch.data.synthetic import SyntheticRequests
+from maskrcnn_tpu_torch import config as cfg_lib
+from maskrcnn_tpu_torch.data.synthetic import (
+    SyntheticDetectionData,
+    SyntheticRequests,
+)
 from maskrcnn_tpu_torch.eval.predict import make_predict_fn
-from maskrcnn_tpu_torch.kernels import roi_align_cuda
+from maskrcnn_tpu_torch.kernels import region_scatter_cuda, roi_align_cuda
+from maskrcnn_tpu_torch.kernels.build import nvcc_path
 from maskrcnn_tpu_torch.models.maskrcnn import MaskRCNN, pyramid_shapes
 from maskrcnn_tpu_torch.ops import roi_align as roi_align_ops
 from maskrcnn_tpu_torch.ops.levels import map_rois_to_fpn_levels
+from maskrcnn_tpu_torch.train.state import create_train_state
+from maskrcnn_tpu_torch.train.step import SamplerDraws, make_train_step
 from maskrcnn_tpu_torch.utils.device import card_name_and_power_limit
 
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM device memory
 F32_FLOPS = 67e12  # H100 SXM float32 outside the tensor cores
 F32_TOL = 1e-5  # kernel vs plain, max abs / max |plain|: summation order
+#   (the region scatter adds with atomics, in an order that varies per run)
 BF16_TOL = 1e-2  # bf16 features, same measure
 SLICE_TOL = 1e-3  # GPU vs CPU request: max abs / max(1, max |CPU|)
-N_REQUESTS = 8  # served through the main path, after one warm-up request
+TRAIN_LOSS_TOL = 1e-3  # GPU vs CPU train step, each loss term, relative:
+#   ~60 layers of float32 sums in another order, forward
+TRAIN_UPDATE_TOL = 5e-3  # each tensor's update, as a share of the largest
+#   update of the step (the same again backward, and a weight difference)
+TRAIN_OWN_TOL = 5e-2  # and as a share of the same tensor's largest update,
+#   beyond two float32 roundings of its largest weight (an activation a
+#   rounding away from zero passes a ReLU on one side only)
+N_REQUESTS = 8  # served through the predict path, after one warm-up request
+N_TRAIN_STEPS = 3  # taken through the train path, after one warm-up step
 
-# every hand-written kernel of the main path: (wrapper, plain version,
+ROI_ALIGN = roi_align_cuda.roi_align_fwd
+SCATTER = region_scatter_cuda.region_scatter
+# every hand-written kernel of the main paths: (wrapper, plain version,
 # source, the Pallas kernel it replaces)
 KERNELS = [
-    (roi_align_cuda.roi_align_fwd, roi_align_cuda.roi_align_region_plain,
+    (ROI_ALIGN, roi_align_cuda.roi_align_region_plain,
      "maskrcnn_tpu_torch/kernels/csrc/roi_align_fwd.cu",
      "maskrcnn_tpu/kernels/roi_align_pallas.py:116"),
+    (SCATTER, region_scatter_cuda.region_scatter_plain,
+     "maskrcnn_tpu_torch/kernels/csrc/region_scatter.cu",
+     "maskrcnn_tpu/kernels/region_scatter_pallas.py:121"),
 ]
 
 
@@ -116,6 +151,25 @@ def roi_align_bound(flat, base, stride, by, bx):
     return 1e3 * n_bytes / HBM_BYTES_PER_S, 1e3 * flops / F32_FLOPS
 
 
+def region_scatter_bound(d_regs, base, stride, s_rows):
+    """(bytes ms, operations ms) of one region scatter on these inputs: the
+    cotangent windows and their geometry read once and the (s_rows, C)
+    output written once, over the memory rate; one add per window element
+    over the f32 peak."""
+    n_bytes = 4 * d_regs.numel() + 8 * base.numel() + 4 * s_rows * d_regs.shape[-1]
+    return 1e3 * n_bytes / HBM_BYTES_PER_S, 1e3 * d_regs.numel() / F32_FLOPS
+
+
+def index_add_ms(d_regs, base, stride, s_rows) -> float:
+    """The one PyTorch call that computes the region scatter: ``index_add_``
+    of the flattened windows on precomputed row indices."""
+    r, t, tx, c = d_regs.shape
+    rows = region_scatter_cuda.scatter_rows(base, stride, t, tx, s_rows).reshape(-1)
+    out = torch.zeros((s_rows + 1, c), device=d_regs.device)
+    src = d_regs.reshape(-1, c)
+    return time_ms(lambda: out.index_add_(0, rows, src))
+
+
 def rel_err(got, want) -> float:
     return float((got.float() - want.float()).abs().max()) / max(
         float(want.float().abs().max()), 1e-30)
@@ -149,13 +203,32 @@ def test_rois(rng, b, hw, n):
     return rois, bi, levels
 
 
+def train_rois(rng, b, hw, n):
+    """(b, n) sampled-ROI slots as a train step pools them: per image, half
+    are jittered copies of four object boxes (many ROIs on one object, so
+    their windows overlap heavily), the rest as :func:`test_rois` draws
+    them, P6 boxes at the bottom-right corner included."""
+    h, w = hw
+    rois, levels = [], []
+    for _ in range(b):
+        r, _, lv = test_rois(rng, 1, hw, n - n // 2)
+        side = rng.uniform(60, 500, (4, 2))
+        y0, x0 = rng.uniform(0, h - side[:, 0]), rng.uniform(0, w - side[:, 1])
+        objects = np.stack([y0, x0, y0 + side[:, 0], x0 + side[:, 1]], 1)
+        near = objects[rng.randint(0, 4, n // 2)] + rng.uniform(-12, 12, (n // 2, 4))
+        near = torch.from_numpy(near.astype(np.float32))
+        rois.append(torch.cat([near, r]))
+        levels.append(torch.cat([map_rois_to_fpn_levels(near), lv]))
+    return torch.stack(rois), torch.stack(levels)
+
+
 def phase_device():
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is false: the port runs on the GPU")
     print(f"[device] torch {torch.__version__} (CUDA {torch.version.cuda}), "
           f"{torch.cuda.device_count()} card(s), using "
           f"{torch.cuda.get_device_name(0)}")
-    nvcc = subprocess.run([roi_align_cuda.nvcc_path(), "--version"],
+    nvcc = subprocess.run([nvcc_path(), "--version"],
                           capture_output=True, text=True).stdout.strip()
     present = {m: importlib.util.find_spec(m) is not None
                for m in ("triton", "ninja", "torchvision")}
@@ -168,25 +241,26 @@ def phase_device():
 
 
 def phase_build():
+    """One ``nvcc`` per source, all started together; a failed build raises."""
     t0 = time.perf_counter()
-    for kernel, *_ in KERNELS:
-        kernel.load()
+    with ThreadPoolExecutor(len(KERNELS)) as pool:
+        list(pool.map(lambda entry: entry[0].library.load(), KERNELS))
     print(f"[build] {len(KERNELS)} kernel(s) built in "
           f"{time.perf_counter() - t0:.1f} s")
     for kernel, *_ in KERNELS:
-        for line in kernel.build_log.splitlines():
+        for line in kernel.library.build_log.splitlines():
             if "registers" in line or "spill" in line:
                 print(f"[build] {kernel.name}: {line.strip()}")
 
 
-def phase_kernels_vs_plain(seed: int) -> float:
+def phase_roi_align_vs_plain(seed: int) -> float:
     """ROIAlign forward against its plain version → worst f32 error."""
     cfg = predict_config("fpn_mask", 1, 800, 1024)
     shapes = pyramid_shapes(cfg, (800, 1024))
     scales = tuple(1.0 / s for s in (4, 8, 16, 32, 64))
     gen = torch.Generator(device="cuda").manual_seed(seed)
     rng = np.random.RandomState(seed)
-    kernel, plain = roi_align_cuda.roi_align_fwd, roi_align_cuda.roi_align_region_plain
+    kernel, plain = ROI_ALIGN, roi_align_cuda.roi_align_region_plain
     worst = 0.0
     for b in (1, 2):
         feats = [torch.randn(b, h, w, 256, device="cuda", generator=gen)
@@ -220,20 +294,79 @@ def phase_kernels_vs_plain(seed: int) -> float:
     return worst
 
 
+def phase_region_scatter_vs_plain(seed: int) -> float:
+    """Region scatter against its plain version, on the cotangent windows a
+    train step builds: the geometry of :func:`train_rois`, a random pooled
+    gradient pulled back through ``By``/``Bx`` (zero outside each ROI's
+    extent, as on the train path), the mask prefix added in → worst error."""
+    cfg = predict_config("fpn_mask", 1, 800, 1024)
+    shapes = np.array(pyramid_shapes(cfg, (800, 1024)))
+    scales = tuple(1.0 / s for s in (4, 8, 16, 32, 64))
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    rng = np.random.RandomState(seed + 1)
+    plain = region_scatter_cuda.region_scatter_plain
+    worst = 0.0
+    n, n_pos, c = 256, 64, 256
+    for b in (2, 8):
+        offsets = np.concatenate([[0], np.cumsum(shapes[:, 0] * shapes[:, 1] * b)[:-1]])
+        s_rows = int((shapes[:, 0] * shapes[:, 1]).sum()) * b
+        rois, levels = (t.cuda() for t in train_rois(rng, b, (800, 1024), n))
+        row_ids, by_b, bx_b, by_m, bx_m = roi_align_ops.pair_geometry(
+            shapes, offsets, rois, levels, n_pos, (7, 7), (14, 14), scales)
+        base, stride = roi_align_ops.window_starts(row_ids)
+        d_regs = roi_align_ops._d_regions(
+            by_b, bx_b, torch.randn(b * n, 7, 7, c, device="cuda", generator=gen))
+        t, tx = d_regs.shape[1:3]
+        d_regs.reshape(b, n, t, tx, c)[:, :n_pos] += roi_align_ops._d_regions(
+            by_m, bx_m, torch.randn(b * n_pos, 14, 14, c, device="cuda", generator=gen)
+        ).reshape(b, n_pos, t, tx, c)
+        args = (d_regs, base, stride, s_rows)
+        want = plain(*args)
+        err = rel_err(SCATTER(*args), want)
+        torch.cuda.synchronize()
+        ms = time_ms(lambda: SCATTER(*args))
+        plain_ms = time_ms(lambda: plain(*args), runs=7, calls=3)
+        lib_ms = index_add_ms(*args)
+        bound = max(region_scatter_bound(*args))
+        past = int((row_ids[:, -1] + tx > s_rows).sum())
+        nonzero = float((d_regs != 0).float().mean())
+        print(f"[kernels] region_scatter b{b} R={b * n} window {t}x{tx} C={c} "
+              f"S={s_rows}, {past} past the buffer's end, {nonzero:.3f} of "
+              f"d_regs nonzero: err {err:.2e}, {ms:.4f} ms (plain "
+              f"{plain_ms:.4f} ms, index_add_ {lib_ms:.4f} ms, bound "
+              f"{bound:.4f} ms)")
+        if not err <= F32_TOL:
+            fail(f"region_scatter error {err} > {F32_TOL}")
+        if past == 0:
+            fail("region_scatter case has no window past the buffer's end")
+        worst = max(worst, err)
+    return worst
+
+
 class Capture:
     """Calls ``fn`` and keeps copies of the arguments of its first ``n``
-    calls: the inputs the main path gives a kernel."""
+    calls: the inputs a main path gives a kernel."""
 
     def __init__(self, fn, n: int):
         self.fn, self.n, self.calls = fn, n, []
 
     def __call__(self, *args):
         if len(self.calls) < self.n:
-            self.calls.append(tuple(a.clone() for a in args))
+            self.calls.append(tuple(
+                a.clone() if isinstance(a, torch.Tensor) else a for a in args))
         return self.fn(*args)
 
 
-def phase_slice(n_requests: int, seed: int):
+def reset_launches():
+    for kernel, *_ in KERNELS:
+        kernel.launches = 0
+
+
+def read_launches() -> dict:
+    return {kernel.name: kernel.launches for kernel, *_ in KERNELS}
+
+
+def phase_predict(n_requests: int, seed: int):
     """Serve requests through the port's predict on the card."""
     cfg = predict_config("fpn_mask", 1, 800, 1024)
     t0 = time.perf_counter()
@@ -242,24 +375,23 @@ def phase_slice(n_requests: int, seed: int):
     predict = make_predict_fn(cfg, model)
     data = SyntheticRequests(cfg, seed=seed)
     requests = [tuple(data.batch(i)) for i in range(n_requests)]
-    print(f"[slice] fpn_mask 800x1024 b1, {cfg.model.n_fg_class} classes, "
+    print(f"[predict] fpn_mask 800x1024 b1, {cfg.model.n_fg_class} classes, "
           f"weights' abs sum {checksum:.6f}, model and {n_requests} requests "
           f"ready in {time.perf_counter() - t0:.1f} s")
 
     # warm-up request 0, keeping the kernel inputs it makes (2 per request)
-    capture = Capture(roi_align_cuda.roi_align_fwd, 2)
+    capture = Capture(ROI_ALIGN, 2)
     roi_align_ops.roi_align_fwd = capture
     try:
         det0 = predict(*requests[0])
         torch.cuda.synchronize()
     finally:
-        roi_align_ops.roi_align_fwd = roi_align_cuda.roi_align_fwd
+        roi_align_ops.roi_align_fwd = ROI_ALIGN
 
-    for kernel, *_ in KERNELS:
-        kernel.launches = 0
+    reset_launches()
     times, dets = time_requests(predict, requests, warmup=0)
-    launches = {kernel.name: kernel.launches for kernel, *_ in KERNELS}
-    print(f"[slice] launches over {n_requests} requests: {launches}")
+    launches = read_launches()
+    print(f"[predict] launches over {n_requests} requests: {launches}")
     if launches["roi_align_fwd"] != 2 * n_requests:
         fail(f"roi_align_fwd launched {launches['roi_align_fwd']} times, "
              f"expected 2 per request")
@@ -269,12 +401,12 @@ def phase_slice(n_requests: int, seed: int):
                 fail(f"non-finite {name}")
         if det.masks.shape != (1, cfg.eval.max_detections, 28, 28):
             fail(f"mask shape {tuple(det.masks.shape)}")
-    print(f"[slice] request p50 {percentile(times, 0.5):.3f} ms, max "
+    print(f"[predict] request p50 {percentile(times, 0.5):.3f} ms, max "
           f"{max(times):.3f} ms (CUDA events, {n_requests} requests after 1 "
           f"warm-up); valid detections per request "
           f"{[int(d.valid.sum()) for d in dets]} of {cfg.eval.max_detections}")
     pairs = passing_pairs(cfg, model, predict, requests)
-    print(f"[slice] (ROI, class) pairs above score_thresh "
+    print(f"[predict] (ROI, class) pairs above score_thresh "
           f"{cfg.eval.score_thresh} per request (untimed rerun): {pairs}")
 
     # the same request on the CPU, through the same port and weights
@@ -282,7 +414,7 @@ def phase_slice(n_requests: int, seed: int):
     cpu_model = MaskRCNN(cfg, device="cpu", seed=seed)
     cpu_model.load_state_dict(model.state_dict())
     ref = make_predict_fn(cfg, cpu_model)(*requests[0])
-    print(f"[slice] request 0 on the CPU in {time.perf_counter() - t0:.1f} s, "
+    print(f"[predict] request 0 on the CPU in {time.perf_counter() - t0:.1f} s, "
           f"{int(ref.valid.sum())} valid detections")
     for name in ("valid", "labels"):
         if not torch.equal(getattr(det0, name).cpu(), getattr(ref, name)):
@@ -290,44 +422,179 @@ def phase_slice(n_requests: int, seed: int):
     for name in ("boxes", "scores", "masks"):
         got, want = getattr(det0, name).cpu(), getattr(ref, name)
         err = float((got - want).abs().max())
-        print(f"[slice] GPU vs CPU {name}: max abs {err:.3e}")
+        print(f"[predict] GPU vs CPU {name}: max abs {err:.3e}")
         if not err <= SLICE_TOL * max(1.0, float(want.abs().max())):
             fail(f"GPU and CPU {name} differ by {err}")
     return launches, capture.calls
 
 
-def phase_kernels_line(launches, calls):
-    """Time each kernel on the inputs the main path gave it (one request's
-    calls, summed), beside its plain version and its bound."""
-    entries = []
-    for kernel, plain, source, replaces in KERNELS:
-        ms = plain_ms = bytes_ms = ops_ms = err = rel = 0.0
-        for args in calls:
-            got, want = kernel(*args), plain(*args)
-            call_rel = rel_err(got, want)
-            if not call_rel <= F32_TOL:
-                fail(f"{kernel.name} on the main path's inputs: error "
-                     f"{call_rel} > {F32_TOL}")
-            err = max(err, float((got - want).abs().max()))
-            rel = max(rel, call_rel)
-            call_ms = time_ms(lambda: kernel(*args))
-            call_plain = time_ms(lambda: plain(*args))
-            b_ms, o_ms = roi_align_bound(*args)
-            print(f"[kernels] {kernel.name} main-path call R={args[3].shape[0]} "
-                  f"{args[3].shape[1]}x{args[4].shape[1]}: {call_ms:.4f} ms, "
-                  f"plain {call_plain:.4f} ms, bound bytes {b_ms:.4f} / "
-                  f"operations {o_ms:.4f} ms, error {call_rel:.2e}")
-            ms, plain_ms = ms + call_ms, plain_ms + call_plain
-            bytes_ms, ops_ms = bytes_ms + b_ms, ops_ms + o_ms
-        entries.append({
-            "name": kernel.name, "route": "cuda", "source": source,
-            "replaces": replaces, "launches": launches[kernel.name],
-            "max_abs_err": err, "rel_err": rel, "ms": ms, "plain_ms": plain_ms,
-            "bound_ms": max(bytes_ms, ops_ms),
-            "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
-            "library_ms": None,  # no one PyTorch call computes ROIAlign
-        })
-    return entries
+def snapshot(model) -> dict:
+    return {k: v.detach().clone() for k, v in model.named_parameters()}
+
+
+def phase_train(n_steps: int, seed: int):
+    """Take optimizer steps through the port's train step on the card."""
+    cfg = predict_config("fpn_mask", 2, 800, 1024)
+    t0 = time.perf_counter()
+    state = create_train_state(cfg, MaskRCNN(cfg, seed=seed), seed)
+    step = make_train_step(cfg)
+    data = SyntheticDetectionData(cfg, seed=seed)
+    batches = [data.batch(i) for i in range(n_steps + 1)]
+    print(f"[train] fpn_mask 800x1024 b2, {cfg.model.n_fg_class} classes, "
+          f"{cfg.proposals.n_train_pre_nms}/{cfg.proposals.n_train_post_nms} "
+          f"proposals, {cfg.sampler.n_sample} sampled ROIs per image; model "
+          f"and {n_steps + 1} batches ready in {time.perf_counter() - t0:.1f} s")
+
+    # the warm-up step, keeping the kernel inputs it makes
+    fwd, bwd = Capture(ROI_ALIGN, 2), Capture(SCATTER, 1)
+    roi_align_ops.roi_align_fwd, roi_align_ops.region_scatter = fwd, bwd
+    try:
+        step(state, batches[0])
+        torch.cuda.synchronize()
+    finally:
+        roi_align_ops.roi_align_fwd, roi_align_ops.region_scatter = ROI_ALIGN, SCATTER
+
+    before = snapshot(state.model)
+    reset_launches()
+    times, metrics, peak = time_train_steps(step, state, batches[1:], warmup=0)
+    launches = read_launches()
+    print(f"[train] launches over {n_steps} steps: {launches}")
+    if launches != {"roi_align_fwd": 2 * n_steps, "region_scatter": n_steps}:
+        fail(f"expected 2 forward launches and 1 region scatter per step, "
+             f"got {launches}")
+    for i, m in enumerate(metrics):
+        m = {k: float(v) for k, v in m.items()}
+        print(f"[train] step {i + 1}: " + ", ".join(
+            f"{k} {v:.4f}" for k, v in m.items() if k.endswith("loss"))
+            + f"; sampled slots valid {int(m['n_valid_rois'])}, positive "
+              f"{int(m['n_pos_rois'])} of {2 * cfg.sampler.n_sample}")
+        if not all(np.isfinite(v) for v in m.values()):
+            fail(f"non-finite loss at step {i + 1}: {m}")
+    after = snapshot(state.model)
+    still = [k for k in before if torch.equal(before[k], after[k])]
+    bn = "extractor.resnet.bn1.weight"
+    print(f"[train] {len(before) - len(still)} of {len(before)} parameter "
+          f"tensors moved; {bn} by "
+          f"{float((after[bn] - before[bn]).abs().max()):.3e}")
+    if still or state.step != n_steps + 1:
+        fail(f"parameters that did not move: {still[:5]}; step {state.step}")
+    ms = statistics.median(times)
+    print(f"[train] step p50 {ms:.3f} ms, max {max(times):.3f} ms (CUDA "
+          f"events, {n_steps} steps after 1 warm-up): {2e3 / ms:.3f} images/s; "
+          f"peak memory {peak / 2**30:.3f} GiB")
+    return launches, fwd.calls, bwd.calls
+
+
+def phase_train_gpu_vs_cpu(seed: int):
+    """One train step from the same weights, batch and sampler draws on the
+    card and on the CPU: full widths and 80 classes on a 256×320 canvas
+    with 1000/256 proposals, so the CPU step stays short."""
+    cfg = cfg_lib._rep(predict_config("fpn_mask", 2, 256, 320),
+                       proposals=dict(n_train_pre_nms=1000, n_train_post_nms=256))
+    batch = SyntheticDetectionData(cfg, seed=seed).batch(0)
+    gen = torch.Generator().manual_seed(seed)
+    n_anchor = 3 * sum(h * w for h, w in pyramid_shapes(cfg, (256, 320)))
+    draws = SamplerDraws(
+        torch.rand((2, 2, 256 + cfg.train.max_gt), generator=gen),
+        torch.rand((2, 2, n_anchor), generator=gen))
+    step = make_train_step(cfg)
+    runs = {}
+    for device in ("cuda", "cpu"):
+        t0 = time.perf_counter()
+        state = create_train_state(cfg, MaskRCNN(cfg, device=device, seed=seed))
+        before = snapshot(state.model)
+        metrics = {k: float(v) for k, v in step(state, batch, draws).items()}
+        update = {k: (v - before[k]).cpu() for k, v in snapshot(state.model).items()}
+        runs[device] = metrics, update
+        print(f"[train] 256x320 b2 step on {device} in "
+              f"{time.perf_counter() - t0:.1f} s: " + ", ".join(
+                  f"{k} {v:.6f}" for k, v in metrics.items()))
+    (got, got_up), (want, want_up) = runs["cuda"], runs["cpu"]
+    if (got["n_valid_rois"], got["n_pos_rois"]) != (want["n_valid_rois"],
+                                                    want["n_pos_rois"]):
+        fail("GPU and CPU sampled different ROI counts")
+    for name, w in want.items():
+        if not abs(got[name] - w) <= TRAIN_LOSS_TOL * max(abs(w), 1e-30):
+            fail(f"GPU and CPU {name} differ: {got[name]} vs {w}")
+    largest = max(float(u.abs().max()) for u in want_up.values())
+    worst = max(want_up, key=lambda k: float((got_up[k] - want_up[k]).abs().max()))
+    err = float((got_up[worst] - want_up[worst]).abs().max())
+    print(f"[train] GPU vs CPU parameter update: worst tensor {worst}, max abs "
+          f"{err:.3e} = {err / largest:.3e} of the largest update {largest:.3e}")
+    if not err <= TRAIN_UPDATE_TOL * largest:
+        fail(f"GPU and CPU updates differ by {err / largest} of the largest")
+    eps = torch.finfo(torch.float32).eps
+    own = {k: float(u.abs().max()) for k, u in want_up.items()}
+    over = {k: max(float((got_up[k] - u).abs().max())
+                   - 2 * eps * float(before[k].abs().max()), 0.0)
+            / max(own[k], 1e-30) for k, u in want_up.items()}
+    worst = max(over, key=over.get)
+    print(f"[train] GPU vs CPU, each tensor against its own update: worst "
+          f"{worst}, {over[worst]:.3e} of its largest update {own[worst]:.3e}")
+    if not over[worst] <= TRAIN_OWN_TOL:
+        fail(f"GPU and CPU updates of {worst} differ by {over[worst]} of its own")
+
+
+def time_calls(kernel, plain, bound, calls, label: str) -> dict:
+    """Hold ``kernel`` against ``plain`` on each of ``calls`` (a path's own
+    inputs) and time both → sums over the calls."""
+    out = dict(ms=0.0, plain_ms=0.0, bytes_ms=0.0, ops_ms=0.0,
+               max_abs_err=0.0, rel_err=0.0)
+    for args in calls:
+        got, want = kernel(*args), plain(*args)
+        rel = rel_err(got, want)
+        if not rel <= F32_TOL:
+            fail(f"{kernel.name} on the {label} path's inputs: error "
+                 f"{rel} > {F32_TOL}")
+        ms = time_ms(lambda: kernel(*args))
+        plain_ms = time_ms(lambda: plain(*args), runs=7, calls=3)
+        b_ms, o_ms = bound(*args)
+        shape = tuple(args[3].shape[:2]) + tuple(args[4].shape[1:2]) \
+            if kernel is ROI_ALIGN else tuple(args[0].shape)
+        print(f"[kernels] {kernel.name} {label}-path call {shape}: {ms:.4f} "
+              f"ms, plain {plain_ms:.4f} ms, bound bytes {b_ms:.4f} / "
+              f"operations {o_ms:.4f} ms, error {rel:.2e}")
+        out["ms"] += ms
+        out["plain_ms"] += plain_ms
+        out["bytes_ms"] += b_ms
+        out["ops_ms"] += o_ms
+        out["max_abs_err"] = max(out["max_abs_err"], float((got - want).abs().max()))
+        out["rel_err"] = max(out["rel_err"], rel)
+    bytes_ms, ops_ms = out.pop("bytes_ms"), out.pop("ops_ms")
+    out["bound_ms"] = max(bytes_ms, ops_ms)
+    out["bound_by"] = "bytes" if bytes_ms >= ops_ms else "operations"
+    return out
+
+
+def phase_kernels_line(predict_launches, predict_calls, train_launches,
+                       train_fwd_calls, train_bwd_calls):
+    """Time each kernel on the inputs the main paths gave it (one request's
+    or one step's calls, summed), beside its plain version and its bound.
+    An entry's top-level numbers are those of the first path that runs the
+    kernel; ``launches`` counts every path, ``launches_by_path`` each."""
+    (_, fwd_plain, fwd_src, fwd_repl), (_, bwd_plain, bwd_src, bwd_repl) = KERNELS
+    fwd_predict = time_calls(ROI_ALIGN, fwd_plain, roi_align_bound,
+                             predict_calls, "predict")
+    fwd_train = time_calls(ROI_ALIGN, fwd_plain, roi_align_bound,
+                           train_fwd_calls, "train")
+    bwd_train = time_calls(SCATTER, bwd_plain, region_scatter_bound,
+                           train_bwd_calls, "train")
+    lib_ms = sum(index_add_ms(*args) for args in train_bwd_calls)
+    print(f"[kernels] region_scatter train-path call: index_add_ {lib_ms:.4f} ms")
+    n_fwd = {"predict": predict_launches["roi_align_fwd"],
+             "train": train_launches["roi_align_fwd"]}
+    n_bwd = {"predict": predict_launches["region_scatter"],
+             "train": train_launches["region_scatter"]}
+    return [
+        {"name": ROI_ALIGN.name, "route": "cuda", "source": fwd_src,
+         "replaces": fwd_repl, "launches": sum(n_fwd.values()),
+         "launches_by_path": n_fwd, **fwd_predict,
+         "library_ms": None,  # no one PyTorch call computes ROIAlign
+         "train_step": fwd_train},
+        {"name": SCATTER.name, "route": "cuda", "source": bwd_src,
+         "replaces": bwd_repl, "launches": sum(n_bwd.values()),
+         "launches_by_path": n_bwd, **bwd_train, "library_ms": lib_ms},
+    ]
 
 
 def main(argv=None):
@@ -335,13 +602,19 @@ def main(argv=None):
     p.add_argument("--seed", type=int, default=0)
     args = p.parse_args(argv)
 
+    t0 = time.perf_counter()
     phase_device()
     phase_build()
-    worst = phase_kernels_vs_plain(args.seed)
+    worst = max(phase_roi_align_vs_plain(args.seed),
+                phase_region_scatter_vs_plain(args.seed))
     print(f"[kernels] worst f32 error against the plain versions: {worst:.2e}")
-    launches, calls = phase_slice(N_REQUESTS, args.seed)
-    entries = phase_kernels_line(launches, calls)
+    predict_launches, predict_calls = phase_predict(N_REQUESTS, args.seed)
+    train_launches, fwd_calls, bwd_calls = phase_train(N_TRAIN_STEPS, args.seed)
+    phase_train_gpu_vs_cpu(args.seed)
+    entries = phase_kernels_line(predict_launches, predict_calls,
+                                 train_launches, fwd_calls, bwd_calls)
     torch.cuda.synchronize()
+    print(f"[done] every phase passed in {time.perf_counter() - t0:.1f} s")
 
     print(card_name_and_power_limit())
     print(json.dumps({"kernels": entries}))

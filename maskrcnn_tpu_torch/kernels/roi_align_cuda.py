@@ -22,30 +22,21 @@ and accumulates in f32 registers. The TPU design's DMA double-buffering, 8-row
 alignment and ``kron(Bx, I_n)`` lane trick answer TPU constraints and are
 not carried over.
 
-The kernel is CUDA C++ with a plain C interface, compiled by ``nvcc`` for
-``sm_90a`` on first use into ``_build/`` (keyed by a hash of the source and
-flags, so a rebuild happens only when either changes) and loaded with
-``ctypes``. On a CPU tensor the wrapper runs :func:`roi_align_region_plain`;
-on a CUDA tensor it launches the kernel or raises.
+The kernel is CUDA C++ with a plain C interface, built and loaded as
+:mod:`maskrcnn_tpu_torch.kernels.build` describes. On a CPU tensor the
+wrapper runs :func:`roi_align_region_plain`; on a CUDA tensor it launches the
+kernel or raises.
 """
 
 from __future__ import annotations
 
 import ctypes
-import hashlib
-import os
-import shutil
-import subprocess
-import tempfile
-import threading
-from pathlib import Path
 
 import torch
 
-_SRC = Path(__file__).parent / "csrc" / "roi_align_fwd.cu"
-_BUILD_DIR = Path(__file__).parent / "_build"
-NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+from maskrcnn_tpu_torch.kernels.build import CudaLibrary
+
+_ARGTYPES = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 7 + [ctypes.c_void_p]
 CHANNEL_TILE = 32  # channels per CUDA block (csrc kChannels)
 MAX_OUT = 16  # largest oh / ow the kernel holds in registers
 
@@ -64,19 +55,6 @@ def roi_align_region_plain(flat, base, stride, by, bx) -> torch.Tensor:
     return torch.einsum("rxk,rykc->ryxc", bx, tmp)
 
 
-def nvcc_path() -> str:
-    home = os.environ.get("CUDA_HOME") or os.environ.get("CUDA_PATH")
-    if home and (Path(home) / "bin" / "nvcc").exists():
-        return str(Path(home) / "bin" / "nvcc")
-    found = shutil.which("nvcc")
-    if found:
-        return found
-    default = Path("/usr/local/cuda/bin/nvcc")
-    if default.exists():
-        return str(default)
-    raise RuntimeError("nvcc not found: set CUDA_HOME or put nvcc on PATH")
-
-
 class RoiAlignForward:
     """Callable wrapper with a launch counter (``launches``), which rises by
     one per kernel launch and nowhere else."""
@@ -85,43 +63,8 @@ class RoiAlignForward:
 
     def __init__(self):
         self.launches = 0
-        self._lib = None
-        self._lock = threading.Lock()
-        self.build_log = ""
-
-    def library_path(self) -> Path:
-        key = hashlib.sha256(_SRC.read_bytes() + " ".join(NVCC_FLAGS).encode())
-        return _BUILD_DIR / f"roi_align_fwd-{key.hexdigest()[:16]}.so"
-
-    def load(self):
-        """Build (if the source or flags changed) and load the library."""
-        with self._lock:
-            if self._lib is not None:
-                return self._lib
-            path = self.library_path()
-            if not path.exists():
-                _BUILD_DIR.mkdir(parents=True, exist_ok=True)
-                fd, tmp = tempfile.mkstemp(suffix=".so", dir=_BUILD_DIR)
-                os.close(fd)
-                try:
-                    proc = subprocess.run(
-                        [nvcc_path(), *NVCC_FLAGS, "-o", tmp, str(_SRC)],
-                        capture_output=True, text=True)
-                    self.build_log = proc.stdout + proc.stderr
-                    if proc.returncode != 0:
-                        raise RuntimeError(
-                            f"nvcc failed ({proc.returncode}):\n{self.build_log}")
-                    os.replace(tmp, path)
-                finally:
-                    if os.path.exists(tmp):
-                        os.unlink(tmp)
-            lib = ctypes.CDLL(str(path))
-            argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 7 + [ctypes.c_void_p]
-            for fn in (lib.roi_align_fwd_f32, lib.roi_align_fwd_bf16):
-                fn.argtypes = argtypes
-                fn.restype = ctypes.c_int
-            self._lib = lib
-            return lib
+        self.library = CudaLibrary("roi_align_fwd.cu", {
+            "roi_align_fwd_f32": _ARGTYPES, "roi_align_fwd_bf16": _ARGTYPES})
 
     def __call__(self, flat, base, stride, by, bx) -> torch.Tensor:
         """flat (S, C) f32/bf16; base, stride (R,) int32; by (R, oh, ty) and
@@ -137,7 +80,7 @@ class RoiAlignForward:
         out = torch.empty((r, oh, ow, c), dtype=torch.float32, device=flat.device)
         if r == 0:
             return out
-        lib = self.load()
+        lib = self.library.load()
         fn = (lib.roi_align_fwd_f32 if flat.dtype == torch.float32
               else lib.roi_align_fwd_bf16)
         with torch.cuda.device(flat.device):

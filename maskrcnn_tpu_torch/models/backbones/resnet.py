@@ -20,13 +20,16 @@ from torch.nn import functional as F
 
 
 class FrozenBatchNorm2d(nn.Module):
-    """BatchNorm on running statistics only (flax ``use_running_average``)."""
+    """BatchNorm on running statistics only (flax ``use_running_average``):
+    freezing fixes the statistics, not the affine. ``weight`` and ``bias``
+    are parameters, as flax's ``scale``/``bias`` are, so training gives them
+    gradients and weight decay; the module ignores ``train()``/``eval()``."""
 
     def __init__(self, channels: int, eps: float = 2e-5):
         super().__init__()
         self.eps = eps
-        self.register_buffer("weight", torch.ones(channels))
-        self.register_buffer("bias", torch.zeros(channels))
+        self.weight = nn.Parameter(torch.ones(channels))
+        self.bias = nn.Parameter(torch.zeros(channels))
         self.register_buffer("running_mean", torch.zeros(channels))
         self.register_buffer("running_var", torch.ones(channels))
 

@@ -2,8 +2,8 @@
 ``maskrcnn_tpu/models/maskrcnn.py``, FPN backbone with the FPN mask head).
 
 Stages are methods — ``extract``, ``rpn``, ``pool``, ``head_box``,
-``head_mask`` — that two-pass predict composes around the parameter-free
-glue (proposals, NMS). Features travel between stages in the JAX layout,
+``head_mask``, ``head_train`` — that two-pass predict and the train step
+compose around the parameter-free glue (proposals, NMS, targets). Features travel between stages in the JAX layout,
 one ``(B, H, W, C)`` tensor per level; they are NHWC views of the
 channels_last NCHW maps the convolutions produce, so the round trip copies
 nothing.
@@ -19,7 +19,10 @@ from maskrcnn_tpu_torch.models.backbones.fpn import FPNBackbone
 from maskrcnn_tpu_torch.models.heads.fpn_heads import FPNMaskHead
 from maskrcnn_tpu_torch.models.init import init_weights
 from maskrcnn_tpu_torch.models.rpn import RPNHead
-from maskrcnn_tpu_torch.ops.roi_align import multilevel_roi_align
+from maskrcnn_tpu_torch.ops.roi_align import (
+    multilevel_roi_align,
+    multilevel_roi_align_train,
+)
 from maskrcnn_tpu_torch.utils.device import resolve_device
 
 _BACKBONE_STRIDES = {"fpn": (4, 8, 16, 32, 64), "c4": (16,), "darknet": (16,)}
@@ -110,6 +113,25 @@ class MaskRCNN(nn.Module):
         s = self.head.roi_size_mask
         pooled = self.pool(features, rois, roi_batch_idx, roi_levels, (s, s))
         return self.head.predict_mask(pooled, class_idx)
+
+    def head_train(self, features, rois_bn, levels_bn, n_pos: int,
+                   class_idx=None):
+        """Train-path head over (B, n) ROI slots with positives FIRST: box
+        branch on every slot, mask branch on the (B, :n_pos) prefix →
+        (locs, scores, masks). Both branches pool from one shared window
+        per ROI (:func:`multilevel_roi_align_train`), whose backward is the
+        region-scatter kernel; the other ROIAlign forms have no train path."""
+        sb, sm = self.head.roi_size_box, self.head.roi_size_mask
+        impl = self.cfg.model.roi_align
+        if impl not in ("auto", "region", "fused"):
+            raise NotImplementedError(
+                f"roi_align={impl!r} has no backward in the port: train with "
+                "'auto', 'region' or 'fused'")
+        pooled_box, pooled_mask = multilevel_roi_align_train(
+            features, rois_bn, levels_bn, n_pos, (sb, sb), (sm, sm),
+            self.spatial_scales)
+        locs, scores = self.head.box(pooled_box)
+        return locs, scores, self.head.predict_mask(pooled_mask, class_idx)
 
     def forward(self, images):
         features = self.extract(images)

@@ -42,6 +42,27 @@ def loc2bbox(src_bbox: torch.Tensor, loc: torch.Tensor) -> torch.Tensor:
     )
 
 
+def bbox2loc(src_bbox: torch.Tensor, dst_bbox: torch.Tensor) -> torch.Tensor:
+    """Encode ``dst`` boxes relative to ``src`` boxes as (ty, tx, th, tw);
+    sizes are floored at the float epsilon so padded boxes stay finite."""
+    height, width = box_hw(src_bbox)
+    ctr_y = src_bbox[..., 0] + 0.5 * height
+    ctr_x = src_bbox[..., 1] + 0.5 * width
+    base_height, base_width = box_hw(dst_bbox)
+    base_ctr_y = dst_bbox[..., 0] + 0.5 * base_height
+    base_ctr_x = dst_bbox[..., 1] + 0.5 * base_width
+
+    eps = torch.finfo(src_bbox.dtype).eps
+    height, width = height.clamp(min=eps), width.clamp(min=eps)
+    base_height = base_height.clamp(min=eps)
+    base_width = base_width.clamp(min=eps)
+    return torch.stack(
+        [(base_ctr_y - ctr_y) / height, (base_ctr_x - ctr_x) / width,
+         torch.log(base_height / height), torch.log(base_width / width)],
+        dim=-1,
+    )
+
+
 def box_iou(bbox_a: torch.Tensor, bbox_b: torch.Tensor) -> torch.Tensor:
     """Pairwise IoU of (..., N, 4) × (..., M, 4) yxyx boxes → (..., N, M).
 

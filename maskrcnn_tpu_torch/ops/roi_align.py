@@ -13,6 +13,11 @@ samples per output cell, averaged. Two forms compute it:
   gathers per sample — the test oracle, and what ``roi_align="gather"``
   selects.
 
+The train step pools its box and mask inputs from ONE shared window per
+ROI (:func:`multilevel_roi_align_train`): the forward kernel twice, and as
+the backward one launch of the region-scatter kernel of
+:mod:`maskrcnn_tpu_torch.kernels.region_scatter_cuda`.
+
 Features enter in the JAX layout, one ``(B, H, W, C)`` tensor per level;
 pooled output is ``(R, oh, ow, C)`` float32.
 """
@@ -24,6 +29,7 @@ import math
 import numpy as np
 import torch
 
+from maskrcnn_tpu_torch.kernels.region_scatter_cuda import region_scatter
 from maskrcnn_tpu_torch.kernels.roi_align_cuda import roi_align_fwd
 
 
@@ -158,6 +164,14 @@ def region_pool(flat, row_ids, by, bx) -> torch.Tensor:
                          by.contiguous(), bx.contiguous())
 
 
+def _folded_window(shapes, t_span: int) -> tuple[int, int]:
+    """(fold, tx): with every level width divisible by 8 the window's x
+    start folds to a multiple of 8 and its width grows to cover the shift
+    (32 at ``t_span=20``); else no fold and a square window."""
+    fold = 8 if all(int(wl) % 8 == 0 for wl in shapes[:, 1]) else 1
+    return fold, -(-(t_span + fold - 1) // fold) * fold if fold > 1 else t_span
+
+
 def region_geometry(features, rois, roi_batch_idx, roi_levels, out_size,
                     spatial_scales, sampling_ratio=2):
     """The JAX region form's geometry (``ops/roi_align.py`` auto/region):
@@ -166,8 +180,7 @@ def region_geometry(features, rois, roi_batch_idx, roi_levels, out_size,
     (flat, row_ids, by, bx)."""
     shapes, _, offsets = _level_layout(features)
     t_span = 20 if len(features) > 1 else int(shapes[0].max()) + 3
-    fold = 8 if all(int(wl) % 8 == 0 for wl in shapes[:, 1]) else 1
-    tx = -(-(t_span + fold - 1) // fold) * fold if fold > 1 else t_span
+    fold, tx = _folded_window(shapes, t_span)
     row_ids, by, bx = region_params(
         shapes, offsets, rois, roi_batch_idx, roi_levels, out_size,
         spatial_scales, sampling_ratio, t_span, x_align=fold, t_span_x=tx,
@@ -192,6 +205,98 @@ def pallas_geometry(features, rois, roi_batch_idx, roi_levels, out_size,
         spatial_scales, sampling_ratio, t_eff, x_align=a, row_strides=strides,
     )
     return flatten_pyramid(features, w_pads), row_ids, by, bx
+
+
+def pair_geometry(shapes, offsets, rois_bn, levels_bn, n_pos: int,
+                  out_size_box, out_size_mask, spatial_scales,
+                  sampling_ratio: int = 2):
+    """Shared-window geometry of the train pair (JAX ``_pair_geometry``):
+    ``t_span=20`` rows, x folded to multiples of 8 with a 32-wide window
+    when every level width divides by 8, and ``origin="box"`` for both
+    output sizes, so the box pool of all ``B·n`` slots and the mask pool of
+    the ``(B, :n_pos)`` prefix read the same ``(base, stride)`` windows.
+    Returns (row_ids (B·n, t), by_b, bx_b, by_m, bx_m)."""
+    b, n = rois_bn.shape[:2]
+    dev = rois_bn.device
+    t_span = 20
+    fold, tx = _folded_window(shapes, t_span)
+    kw = dict(x_align=fold, t_span_x=tx, origin="box")
+    batch_idx = torch.arange(b, dtype=torch.int32, device=dev)
+    row_ids, by_b, bx_b = region_params(
+        shapes, offsets, rois_bn.reshape(b * n, 4), batch_idx.repeat_interleave(n),
+        levels_bn.reshape(b * n), out_size_box, spatial_scales,
+        sampling_ratio, t_span, **kw)
+    _, by_m, bx_m = region_params(
+        shapes, offsets, rois_bn[:, :n_pos].reshape(b * n_pos, 4),
+        batch_idx.repeat_interleave(n_pos),
+        levels_bn[:, :n_pos].reshape(b * n_pos), out_size_mask,
+        spatial_scales, sampling_ratio, t_span, **kw)
+    return row_ids, by_b, bx_b, by_m, bx_m
+
+
+def _d_regions(by, bx, g) -> torch.Tensor:
+    """``Byᵀ · g · Bx``: the cotangent of a pooled (R, oh, ow, C) output with
+    respect to its (R, t, tx, C) window, as two batched matrix products."""
+    r, oh, ow, c = g.shape
+    tmp = torch.matmul(by.transpose(1, 2), g.reshape(r, oh, ow * c))
+    tmp = tmp.reshape(r, by.shape[2], ow, c)  # (R, t, ow, C)
+    return torch.matmul(bx.transpose(1, 2)[:, None], tmp)  # (R, t, tx, C)
+
+
+class _RegionPair(torch.autograd.Function):
+    """Box and mask pools from one window per ROI. Forward: the ROIAlign
+    kernel once per output size; only the geometry is saved, the (R, t, tx,
+    C) windows never exist. Backward (JAX ``_fused_pair_bwd``): both
+    cotangent windows as matrix products, the mask's added into the
+    positive prefix in place, then ONE launch of the region-scatter kernel.
+    Only ``flat`` gets a gradient."""
+
+    @staticmethod
+    def forward(ctx, flat, base, stride, by_b, bx_b, by_m, bx_m, b, n, n_pos):
+        pooled_box = roi_align_fwd(flat, base, stride, by_b, bx_b)
+        prefix = [x.reshape(b, n)[:, :n_pos].reshape(b * n_pos).contiguous()
+                  for x in (base, stride)]
+        pooled_mask = roi_align_fwd(flat, *prefix, by_m, bx_m)
+        ctx.save_for_backward(base, stride, by_b, bx_b, by_m, bx_m)
+        ctx.dims = (b, n, n_pos, flat.shape[0], flat.dtype)
+        return pooled_box, pooled_mask
+
+    @staticmethod
+    def backward(ctx, g_box, g_mask):
+        base, stride, by_b, bx_b, by_m, bx_m = ctx.saved_tensors
+        b, n, n_pos, s_rows, dtype = ctx.dims
+        d_reg = _d_regions(by_b, bx_b, g_box.float())
+        d_reg_m = _d_regions(by_m, bx_m, g_mask.float())
+        tail = d_reg.shape[1:]
+        d_reg.reshape(b, n, *tail)[:, :n_pos] += d_reg_m.reshape(b, n_pos, *tail)
+        d_flat = region_scatter(d_reg, base, stride, s_rows)
+        return (d_flat.to(dtype),) + (None,) * 9
+
+
+def multilevel_roi_align_train(features, rois_bn, levels_bn, n_pos: int,
+                               out_size_box, out_size_mask, spatial_scales,
+                               sampling_ratio: int = 2):
+    """Box pooling for ALL ``(B·n)`` ROI slots plus mask pooling for the
+    ``(B, :n_pos)`` positive prefix, from one shared window per ROI.
+
+    features: per level (B, Hl, Wl, C); rois_bn (B, n, 4) yxyx with
+    positives first; levels_bn (B, n) int32. Returns (pooled_box (B·n, oh,
+    ow, C), pooled_mask (B·n_pos, ohm, owm, C)), float32, differentiable
+    with respect to the features only. On CUDA tensors the forward and the
+    backward are the hand-written kernels; on CPU tensors their plain
+    versions.
+    """
+    if len(features) != len(spatial_scales):
+        raise ValueError("one spatial scale per level")
+    b, n = rois_bn.shape[:2]
+    shapes, _, offsets = _level_layout(features)
+    row_ids, by_b, bx_b, by_m, bx_m = pair_geometry(
+        shapes, offsets, rois_bn.detach(), levels_bn, n_pos, out_size_box,
+        out_size_mask, spatial_scales, sampling_ratio)
+    base, stride = window_starts(row_ids)
+    return _RegionPair.apply(
+        flatten_pyramid(features), base, stride, by_b.contiguous(),
+        bx_b.contiguous(), by_m.contiguous(), bx_m.contiguous(), b, n, n_pos)
 
 
 def roi_align_gather(features, rois, roi_batch_idx, roi_levels, out_size,

@@ -70,6 +70,8 @@ def test_importing_the_port_loads_no_jax():
     assert out.returncode == 0, out.stderr[-3000:]
     loaded = json.loads(out.stdout.strip().splitlines()[-1])
     assert "maskrcnn_tpu_torch.eval.predict" in loaded
+    assert "maskrcnn_tpu_torch.train.step" in loaded
+    assert "maskrcnn_tpu_torch.kernels.region_scatter_cuda" in loaded
     assert [m for m in loaded if _forbidden(m)] == []
 
 
@@ -85,7 +87,7 @@ def test_port_sources_import_no_jax():
                 continue
             bad += [f"{path.relative_to(ROOT)}:{node.lineno} {n}"
                     for n in names if _forbidden(n)]
-    assert len(_sources()) > 20
+    assert len(_sources()) > 30
     assert bad == []
 
 
@@ -93,6 +95,7 @@ def test_entry_points_refuse_to_run_on_the_cpu_unasked():
     if torch.cuda.is_available():
         pytest.skip("a CUDA device is present: the default is the GPU")
     from maskrcnn_tpu_torch import config as cfg_lib
+    from maskrcnn_tpu_torch.kernels.region_scatter_cuda import region_scatter
     from maskrcnn_tpu_torch.kernels.roi_align_cuda import roi_align_fwd
     from maskrcnn_tpu_torch.models.maskrcnn import MaskRCNN
     from maskrcnn_tpu_torch.utils.device import resolve_device
@@ -109,6 +112,8 @@ def test_entry_points_refuse_to_run_on_the_cpu_unasked():
     by = torch.zeros(1, 1, 2, device="meta")
     with pytest.raises(ValueError, match="unsupported device"):
         roi_align_fwd(flat, geo, geo, by, by)
+    with pytest.raises(ValueError, match="unsupported device"):
+        region_scatter(torch.zeros(1, 1, 2, 32, device="meta"), geo, geo, 8)
 
 
 @pytest.mark.parametrize("where", ["checkout", "alone"])
