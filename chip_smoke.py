@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch/CUDA port (``maskrcnn_tpu_torch``) on one GPU.
 
-    python3 chip_smoke.py [--seed 0]
+    python3 chip_smoke.py [--seed 0] [--against OTHER/roi_align_fwd.cu]
 
 Phases, in order; any failure exits non-zero before the result is printed:
 
@@ -12,7 +12,8 @@ Phases, in order; any failure exits non-zero before the result is printed:
 3. kernels against their plain versions on the card, at the shapes of the
    main paths: the ROIAlign forward on an 800×1024 pyramid (C=256) at batch
    1 and 2, 300 ROIs at 7×7 and 100 at 14×14, in the region and the
-   pallas window geometry, f32 and bf16 features; the region scatter on
+   pallas window geometry, f32 and bf16 features, also against the banded
+   step-by-step version of the kernel's arithmetic; the region scatter on
    the cotangent windows of 512 and 2048 train ROIs (20×32 windows, C=256)
    over the pyramids of batch 2 and 8. ROIs lie on all five levels, many on
    one object, some with windows that run past the end of the buffer;
@@ -32,8 +33,13 @@ Phases, in order; any failure exits non-zero before the result is printed:
    and on the CPU (plain versions), at full width on a 256×320 canvas with
    1000/256 proposals: losses and parameter updates must agree;
 7. the kernels line: each kernel on the inputs the main paths gave it, held
-   against its plain version, with both times, its bound and, where one
-   PyTorch call computes the same function, that call's time.
+   against its plain version, with both times, its bound (for the ROIAlign
+   forward the work these inputs need, with the dense count beside it) and,
+   where one PyTorch call computes the same function, that call's time; the
+   matrix products that build the region scatter's input are timed beside
+   it. With ``--against``, the ROIAlign forward source of another checkout
+   (same C interface) is built too and timed on the same inputs in the
+   order other, this, this, other.
 
 The last three lines of standard output are the card's name and power limit,
 the kernels JSON line and ``{"ok": true, "device": {...}}``.
@@ -49,6 +55,7 @@ import subprocess
 import sys
 import time
 from concurrent.futures import ThreadPoolExecutor
+from pathlib import Path
 
 import numpy as np
 import torch
@@ -89,6 +96,7 @@ TRAIN_UPDATE_TOL = 5e-3  # each tensor's update, as a share of the largest
 TRAIN_OWN_TOL = 5e-2  # and as a share of the same tensor's largest update,
 #   beyond two float32 roundings of its largest weight (an activation a
 #   rounding away from zero passes a ReLU on one side only)
+BUSY_CYCLES = 2_000_000  # spin ahead of a timed run: about 1.1 ms at 1.8 GHz
 N_REQUESTS = 8  # served through the predict path, after one warm-up request
 N_TRAIN_STEPS = 3  # taken through the train path, after one warm-up step
 
@@ -112,9 +120,12 @@ def fail(msg: str):
 
 def time_ms(fn, runs: int = 21, calls: int = 10) -> float:
     """Median over ``runs`` of the CUDA-event time per call of ``calls``
-    back-to-back calls, after warm-up. Back to back, the launches queue
-    ahead of the card, so a run times the kernels and not the Python that
-    launches them (events around a single call would time both)."""
+    back-to-back calls, after warm-up. Each run first keeps the card busy
+    for about a millisecond (``torch.cuda._sleep``), so the host enqueues
+    all the calls meanwhile and the events time the kernels alone: a
+    wrapper's Python takes 30 to 50 microseconds a call, more than a short
+    kernel, and events around calls that the card has to wait for would
+    time the Python."""
     for _ in range(3):
         fn()
     torch.cuda.synchronize()
@@ -122,6 +133,7 @@ def time_ms(fn, runs: int = 21, calls: int = 10) -> float:
     for _ in range(runs):
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
+        torch.cuda._sleep(BUSY_CYCLES)
         start.record()
         for _ in range(calls):
             fn()
@@ -131,33 +143,29 @@ def time_ms(fn, runs: int = 21, calls: int = 10) -> float:
     return statistics.median(times)
 
 
-def roi_align_bound(flat, base, stride, by, bx):
-    """(bytes ms, operations ms) of one ROIAlign forward on these inputs:
-    the rows of the union of this call's windows inside the buffer, the
-    geometry and weights read once and the output written once, over the
-    memory rate; the two dense contractions' FLOPs over the f32 peak."""
-    r, oh, ty = by.shape
-    ow, tx = bx.shape[1:]
-    s, c = flat.shape
-    rows = (base.long()[:, None, None]
-            + torch.arange(ty, device=flat.device)[None, :, None] * stride.long()[:, None, None]
-            + torch.arange(tx, device=flat.device)[None, None, :]).reshape(-1)
-    n_rows = torch.unique(rows[(rows >= 0) & (rows < s)]).numel()
-    n_bytes = (n_rows * c * flat.element_size() + 8 * r
-               + 4 * (by.numel() + bx.numel()) + 4 * r * oh * ow * c)
-    # out = By · W · Bxᵀ: the FLOPs of the cheaper contraction order
-    flops = 2 * r * c * min(oh * ty * tx + oh * ow * tx,
-                            ow * ty * tx + oh * ow * ty)
-    return 1e3 * n_bytes / HBM_BYTES_PER_S, 1e3 * flops / F32_FLOPS
+def roi_align_bound(flat, base, stride, by, bx) -> dict:
+    """Bound of one ROIAlign forward on these inputs, in ms
+    (:func:`roi_align_cuda.roi_align_work`): the pyramid rows that a nonzero
+    weight reaches, the geometry and weights read once and the output
+    written once, over the memory rate; the FLOPs of the nonzero weights in
+    the cheaper contraction order over the f32 peak; and the dense count of
+    both (whole windows, two dense contractions) beside them."""
+    work = roi_align_cuda.roi_align_work(flat, base, stride, by, bx)
+    return {"bytes_ms": 1e3 * work["bytes"] / HBM_BYTES_PER_S,
+            "ops_ms": 1e3 * work["flops"] / F32_FLOPS,
+            "dense_bytes_ms": 1e3 * work["dense_bytes"] / HBM_BYTES_PER_S,
+            "dense_ops_ms": 1e3 * work["dense_flops"] / F32_FLOPS,
+            "reached": work["reached_elements"] / work["window_elements"]}
 
 
-def region_scatter_bound(d_regs, base, stride, s_rows):
-    """(bytes ms, operations ms) of one region scatter on these inputs: the
-    cotangent windows and their geometry read once and the (s_rows, C)
-    output written once, over the memory rate; one add per window element
-    over the f32 peak."""
+def region_scatter_bound(d_regs, base, stride, s_rows) -> dict:
+    """Bound of one region scatter on these inputs, in ms: the cotangent
+    windows and their geometry read once and the (s_rows, C) output written
+    once, over the memory rate; one add per window element over the f32
+    peak."""
     n_bytes = 4 * d_regs.numel() + 8 * base.numel() + 4 * s_rows * d_regs.shape[-1]
-    return 1e3 * n_bytes / HBM_BYTES_PER_S, 1e3 * d_regs.numel() / F32_FLOPS
+    return {"bytes_ms": 1e3 * n_bytes / HBM_BYTES_PER_S,
+            "ops_ms": 1e3 * d_regs.numel() / F32_FLOPS}
 
 
 def index_add_ms(d_regs, base, stride, s_rows) -> float:
@@ -261,6 +269,7 @@ def phase_roi_align_vs_plain(seed: int) -> float:
     gen = torch.Generator(device="cuda").manual_seed(seed)
     rng = np.random.RandomState(seed)
     kernel, plain = ROI_ALIGN, roi_align_cuda.roi_align_region_plain
+    banded = roi_align_cuda.roi_align_region_banded
     worst = 0.0
     for b in (1, 2):
         feats = [torch.randn(b, h, w, 256, device="cuda", generator=gen)
@@ -272,22 +281,32 @@ def phase_roi_align_vs_plain(seed: int) -> float:
                 flat, row_ids, by, bx = build(feats, rois, bi, levels,
                                               (out, out), scales)
                 args = (flat, *roi_align_ops.window_starts(row_ids), by, bx)
-                err = rel_err(kernel(*args), plain(*args))
+                got, want = kernel(*args), plain(*args)
+                err = rel_err(got, want)
+                steps_err = rel_err(got, banded(*args))
                 args16 = (flat.bfloat16(),) + args[1:]
                 err16 = rel_err(kernel(*args16), plain(*args16))
                 torch.cuda.synchronize()
                 ms = time_ms(lambda: kernel(*args))
                 plain_ms = time_ms(lambda: plain(*args))
-                bound = max(roi_align_bound(*args))
+                bound = roi_align_bound(*args)
                 past = int((row_ids[:, -1] + bx.shape[2] > flat.shape[0]).sum())
                 print(f"[kernels] roi_align_fwd b{b} R={n} {out}x{out} "
                       f"{geometry} window {by.shape[2]}x{bx.shape[2]}, "
                       f"{past} past the buffer's end: "
-                      f"f32 err {err:.2e}, bf16 err {err16:.2e}, "
-                      f"{ms:.4f} ms (plain {plain_ms:.4f} ms, bound "
-                      f"{bound:.4f} ms)")
+                      f"f32 err {err:.2e} (against the banded steps "
+                      f"{steps_err:.2e}), bf16 err {err16:.2e}, "
+                      f"{ms:.4f} ms (plain {plain_ms:.4f} ms; bound bytes "
+                      f"{bound['bytes_ms']:.4f} / operations "
+                      f"{bound['ops_ms']:.4f} ms; dense count bytes "
+                      f"{bound['dense_bytes_ms']:.4f} / operations "
+                      f"{bound['dense_ops_ms']:.4f} ms; "
+                      f"{bound['reached']:.3f} of the windows reached)")
                 if not err <= F32_TOL:
                     fail(f"roi_align_fwd f32 error {err} > {F32_TOL}")
+                if not steps_err <= F32_TOL:
+                    fail(f"roi_align_fwd differs from its banded steps by "
+                         f"{steps_err} > {F32_TOL}")
                 if not err16 <= BF16_TOL:
                     fail(f"roi_align_fwd bf16 error {err16} > {BF16_TOL}")
                 worst = max(worst, err)
@@ -327,7 +346,7 @@ def phase_region_scatter_vs_plain(seed: int) -> float:
         ms = time_ms(lambda: SCATTER(*args))
         plain_ms = time_ms(lambda: plain(*args), runs=7, calls=3)
         lib_ms = index_add_ms(*args)
-        bound = max(region_scatter_bound(*args))
+        bound = max(region_scatter_bound(*args).values())
         past = int((row_ids[:, -1] + tx > s_rows).sum())
         nonzero = float((d_regs != 0).float().mean())
         print(f"[kernels] region_scatter b{b} R={b * n} window {t}x{tx} C={c} "
@@ -446,13 +465,18 @@ def phase_train(n_steps: int, seed: int):
           f"and {n_steps + 1} batches ready in {time.perf_counter() - t0:.1f} s")
 
     # the warm-up step, keeping the kernel inputs it makes
+    # (and the cotangents that the products feeding the scatter get)
     fwd, bwd = Capture(ROI_ALIGN, 2), Capture(SCATTER, 1)
+    d_regions = roi_align_ops._d_regions
+    products = Capture(d_regions, 2)
     roi_align_ops.roi_align_fwd, roi_align_ops.region_scatter = fwd, bwd
+    roi_align_ops._d_regions = products
     try:
         step(state, batches[0])
         torch.cuda.synchronize()
     finally:
         roi_align_ops.roi_align_fwd, roi_align_ops.region_scatter = ROI_ALIGN, SCATTER
+        roi_align_ops._d_regions = d_regions
 
     before = snapshot(state.model)
     reset_launches()
@@ -482,7 +506,7 @@ def phase_train(n_steps: int, seed: int):
     print(f"[train] step p50 {ms:.3f} ms, max {max(times):.3f} ms (CUDA "
           f"events, {n_steps} steps after 1 warm-up): {2e3 / ms:.3f} images/s; "
           f"peak memory {peak / 2**30:.3f} GiB")
-    return launches, fwd.calls, bwd.calls
+    return launches, fwd.calls, bwd.calls, products.calls
 
 
 def phase_train_gpu_vs_cpu(seed: int):
@@ -538,8 +562,8 @@ def phase_train_gpu_vs_cpu(seed: int):
 def time_calls(kernel, plain, bound, calls, label: str) -> dict:
     """Hold ``kernel`` against ``plain`` on each of ``calls`` (a path's own
     inputs) and time both → sums over the calls."""
-    out = dict(ms=0.0, plain_ms=0.0, bytes_ms=0.0, ops_ms=0.0,
-               max_abs_err=0.0, rel_err=0.0)
+    out = dict(ms=0.0, plain_ms=0.0, max_abs_err=0.0, rel_err=0.0)
+    bounds = {}
     for args in calls:
         got, want = kernel(*args), plain(*args)
         rel = rel_err(got, want)
@@ -548,26 +572,83 @@ def time_calls(kernel, plain, bound, calls, label: str) -> dict:
                  f"{rel} > {F32_TOL}")
         ms = time_ms(lambda: kernel(*args))
         plain_ms = time_ms(lambda: plain(*args), runs=7, calls=3)
-        b_ms, o_ms = bound(*args)
-        shape = tuple(args[3].shape[:2]) + tuple(args[4].shape[1:2]) \
-            if kernel is ROI_ALIGN else tuple(args[0].shape)
-        print(f"[kernels] {kernel.name} {label}-path call {shape}: {ms:.4f} "
-              f"ms, plain {plain_ms:.4f} ms, bound bytes {b_ms:.4f} / "
-              f"operations {o_ms:.4f} ms, error {rel:.2e}")
+        b = bound(*args)
+        dense = ""
+        if "reached" in b:  # the ROIAlign forward's bound
+            dense = (f" (dense count: bytes {b['dense_bytes_ms']:.4f} / operations "
+                     f"{b['dense_ops_ms']:.4f} ms; {b.pop('reached'):.3f} of the "
+                     f"windows reached)")
+        print(f"[kernels] {kernel.name} {label}-path call {call_shape(kernel, args)}: "
+              f"{ms:.4f} ms, plain {plain_ms:.4f} ms, bound bytes "
+              f"{b['bytes_ms']:.4f} / operations {b['ops_ms']:.4f} ms{dense}; "
+              f"the bound is {max(b['bytes_ms'], b['ops_ms']) / ms:.3f} of the "
+              f"kernel's time; error {rel:.2e}")
         out["ms"] += ms
         out["plain_ms"] += plain_ms
-        out["bytes_ms"] += b_ms
-        out["ops_ms"] += o_ms
+        for key, value in b.items():
+            bounds[key] = bounds.get(key, 0.0) + value
         out["max_abs_err"] = max(out["max_abs_err"], float((got - want).abs().max()))
         out["rel_err"] = max(out["rel_err"], rel)
-    bytes_ms, ops_ms = out.pop("bytes_ms"), out.pop("ops_ms")
-    out["bound_ms"] = max(bytes_ms, ops_ms)
-    out["bound_by"] = "bytes" if bytes_ms >= ops_ms else "operations"
+    out["bound_ms"] = max(bounds["bytes_ms"], bounds["ops_ms"])
+    out["bound_by"] = "bytes" if bounds["bytes_ms"] >= bounds["ops_ms"] else "operations"
+    if "dense_ops_ms" in bounds:
+        out["bound_dense_ms"] = max(bounds["dense_bytes_ms"], bounds["dense_ops_ms"])
     return out
 
 
+def call_shape(kernel, args) -> tuple:
+    """(R, oh, ow) of a ROIAlign forward call, else its first argument's shape."""
+    if kernel.name == ROI_ALIGN.name:
+        return tuple(args[3].shape[:2]) + tuple(args[4].shape[1:2])
+    return tuple(args[0].shape)
+
+
+def d_regs_matmul_ms(product_calls) -> float:
+    """Time of the matrix products ``Byᵀ·g·Bx`` that build the region
+    scatter's input, on the cotangents the train path gave them (one call
+    for the box pool, one for the mask pool), summed."""
+    total = 0.0
+    for by, bx, g in product_calls:
+        ms = time_ms(lambda: roi_align_ops._d_regions(by, bx, g), runs=7, calls=3)
+        print(f"[kernels] d_regs products train-path call {tuple(g.shape)} -> "
+              f"{(g.shape[0], by.shape[2], bx.shape[2], g.shape[3])}: {ms:.4f} ms")
+        total += ms
+    return total
+
+
+def time_by_roi_count(args):
+    """Time the ROIAlign forward on the first R, and on repeats, of one
+    call's ROIs: what one block's chain of latencies costs (R = 1) and what
+    each further ROI adds."""
+    flat, *per_roi = args
+    n = per_roi[0].shape[0]
+    readings = []
+    for r in (1, 32, n // 2, n, 2 * n, 4 * n):
+        idx = torch.arange(r, device=flat.device) % n
+        sub = [flat] + [t[idx].contiguous() for t in per_roi]
+        readings.append(f"R={r} {time_ms(lambda: ROI_ALIGN(*sub)):.4f}")
+    print(f"[kernels] roi_align_fwd by ROI count, call "
+          f"{call_shape(ROI_ALIGN, args)}'s ROIs: " + ", ".join(readings) + " ms")
+
+
+def time_against(other_source: str, calls_by_path: dict):
+    """Build the ROIAlign forward of ``other_source`` (another checkout's
+    ``roi_align_fwd.cu``, same C interface) and time it against this
+    checkout's on the main paths' own inputs: other, this, this, other."""
+    other = roi_align_cuda.RoiAlignForward(source=str(Path(other_source).resolve()))
+    plain = roi_align_cuda.roi_align_region_plain
+    for label, calls in calls_by_path.items():
+        for args in calls:
+            err = rel_err(other(*args), plain(*args))
+            times = [time_ms(lambda: k(*args)) for k in (other, ROI_ALIGN, ROI_ALIGN, other)]
+            print(f"[against] roi_align_fwd {label}-path call "
+                  f"{call_shape(ROI_ALIGN, args)}: other {times[0]:.4f}, this "
+                  f"{times[1]:.4f}, this {times[2]:.4f}, other {times[3]:.4f} ms "
+                  f"(other's error {err:.2e})")
+
+
 def phase_kernels_line(predict_launches, predict_calls, train_launches,
-                       train_fwd_calls, train_bwd_calls):
+                       train_fwd_calls, train_bwd_calls, product_calls):
     """Time each kernel on the inputs the main paths gave it (one request's
     or one step's calls, summed), beside its plain version and its bound.
     An entry's top-level numbers are those of the first path that runs the
@@ -579,8 +660,11 @@ def phase_kernels_line(predict_launches, predict_calls, train_launches,
                            train_fwd_calls, "train")
     bwd_train = time_calls(SCATTER, bwd_plain, region_scatter_bound,
                            train_bwd_calls, "train")
+    for args in predict_calls:
+        time_by_roi_count(args)
     lib_ms = sum(index_add_ms(*args) for args in train_bwd_calls)
     print(f"[kernels] region_scatter train-path call: index_add_ {lib_ms:.4f} ms")
+    products_ms = d_regs_matmul_ms(product_calls)
     n_fwd = {"predict": predict_launches["roi_align_fwd"],
              "train": train_launches["roi_align_fwd"]}
     n_bwd = {"predict": predict_launches["region_scatter"],
@@ -593,13 +677,16 @@ def phase_kernels_line(predict_launches, predict_calls, train_launches,
          "train_step": fwd_train},
         {"name": SCATTER.name, "route": "cuda", "source": bwd_src,
          "replaces": bwd_repl, "launches": sum(n_bwd.values()),
-         "launches_by_path": n_bwd, **bwd_train, "library_ms": lib_ms},
+         "launches_by_path": n_bwd, **bwd_train, "library_ms": lib_ms,
+         "d_regs_matmul_ms": products_ms},
     ]
 
 
 def main(argv=None):
     p = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     p.add_argument("--seed", type=int, default=0)
+    p.add_argument("--against", metavar="SOURCE", help="another checkout's "
+                   "roi_align_fwd.cu, timed beside this one's")
     args = p.parse_args(argv)
 
     t0 = time.perf_counter()
@@ -609,10 +696,13 @@ def main(argv=None):
                 phase_region_scatter_vs_plain(args.seed))
     print(f"[kernels] worst f32 error against the plain versions: {worst:.2e}")
     predict_launches, predict_calls = phase_predict(N_REQUESTS, args.seed)
-    train_launches, fwd_calls, bwd_calls = phase_train(N_TRAIN_STEPS, args.seed)
+    train_launches, fwd_calls, bwd_calls, product_calls = phase_train(
+        N_TRAIN_STEPS, args.seed)
     phase_train_gpu_vs_cpu(args.seed)
-    entries = phase_kernels_line(predict_launches, predict_calls,
-                                 train_launches, fwd_calls, bwd_calls)
+    entries = phase_kernels_line(predict_launches, predict_calls, train_launches,
+                                 fwd_calls, bwd_calls, product_calls)
+    if args.against:
+        time_against(args.against, {"predict": predict_calls, "train": fwd_calls})
     torch.cuda.synchronize()
     print(f"[done] every phase passed in {time.perf_counter() - t0:.1f} s")
 

@@ -21,6 +21,7 @@ from maskrcnn_tpu_torch.kernels.region_scatter_cuda import (  # noqa: E402
 )
 from maskrcnn_tpu_torch.kernels.roi_align_cuda import (  # noqa: E402
     roi_align_fwd,
+    roi_align_region_banded,
     roi_align_region_plain,
 )
 from maskrcnn_tpu_torch.models.maskrcnn import MaskRCNN  # noqa: E402
@@ -38,31 +39,59 @@ def cuda():
     return torch.device("cuda")
 
 
-def _case(dev, s, c, r, oh, ow, ty, tx, seed=0):
+def _banded(shape, g, dev):
+    """Weights shaped like ROIAlign's: per row one to four neighbouring
+    nonzeros at a random place, every seventh row empty."""
+    r, o, t = shape
+    w = torch.rand(shape, device=dev, generator=g)
+    idx = torch.arange(t, device=dev)
+    lo = torch.randint(0, t, (r, o, 1), device=dev, generator=g)
+    width = torch.randint(1, 5, (r, o, 1), device=dev, generator=g)
+    keep = (idx >= lo) & (idx < lo + width)
+    keep &= (torch.arange(r * o, device=dev).reshape(r, o, 1) % 7) != 3
+    return w * keep
+
+
+def _case(dev, s, c, r, oh, ow, ty, tx, seed=0, weights="dense", lo=-3):
     g = torch.Generator(device=dev).manual_seed(seed)
     flat = torch.randn(s, c, device=dev, generator=g)
-    base = torch.randint(-3, s, (r,), device=dev, generator=g, dtype=torch.int32)
+    base = torch.randint(lo, s, (r,), device=dev, generator=g, dtype=torch.int32)
     stride = torch.randint(0, 64, (r,), device=dev, generator=g, dtype=torch.int32)
-    by = torch.rand(r, oh, ty, device=dev, generator=g)
-    bx = torch.rand(r, ow, tx, device=dev, generator=g)
+    if weights == "dense":
+        by = torch.rand(r, oh, ty, device=dev, generator=g)
+        bx = torch.rand(r, ow, tx, device=dev, generator=g)
+    else:
+        by, bx = _banded((r, oh, ty), g, dev), _banded((r, ow, tx), g, dev)
     return flat, base, stride, by, bx
 
 
-@pytest.mark.parametrize("r,oh,ow,ty,tx", [
-    (300, 7, 7, 20, 32), (100, 14, 14, 24, 24), (5, 1, 3, 1, 5),
-    (3, 16, 9, 7, 33), (1, 8, 8, 20, 32)])
+@pytest.mark.parametrize("r,oh,ow,ty,tx,c,lo", [
+    (300, 7, 7, 20, 32, 64, -3), (100, 14, 14, 24, 24, 64, -3),
+    (5, 1, 3, 1, 5, 64, -3), (3, 16, 9, 7, 33, 64, -3),
+    (1, 8, 8, 20, 32, 64, -3), (1, 7, 7, 20, 32, 32, -3),
+    (40, 14, 14, 20, 20, 32, -3), (64, 7, 7, 20, 32, 256, -700),
+    (64, 14, 14, 24, 24, 256, -700)])
+@pytest.mark.parametrize("weights", ["dense", "banded"])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-def test_roi_align_fwd_matches_plain(cuda, r, oh, ow, ty, tx, dtype):
-    flat, base, stride, by, bx = _case(cuda, 4000, 64, r, oh, ow, ty, tx)
+def test_roi_align_fwd_matches_plain(cuda, r, oh, ow, ty, tx, c, lo, weights, dtype):
+    """Dense random weights (every band the whole row) and ROIAlign-like
+    banded ones with empty rows; windows that start before row 0 (``lo``:
+    whole windows in front of the buffer at -700) and run past its end;
+    one ROI; one channel tile; window widths that are no multiple of 4 or 8."""
+    flat, base, stride, by, bx = _case(cuda, 4000, c, r, oh, ow, ty, tx,
+                                       weights=weights, lo=lo)
     flat = flat.to(dtype)
     before = roi_align_fwd.launches
     got = roi_align_fwd(flat, base, stride, by, bx)
     assert roi_align_fwd.launches == before + 1
     want = roi_align_region_plain(flat, base, stride, by, bx)
     torch.cuda.synchronize()
-    assert got.shape == (r, oh, ow, 64) and got.dtype == torch.float32
-    err = float((got - want).abs().max()) / float(want.abs().max())
-    assert err <= 1e-5
+    assert got.shape == (r, oh, ow, c) and got.dtype == torch.float32
+    scale = max(float(want.abs().max()), 1e-30)
+    assert float((got - want).abs().max()) / scale <= 1e-5
+    if r <= 64:  # the kernel's arithmetic step by step
+        steps = roi_align_region_banded(flat, base, stride, by, bx)
+        assert float((got - steps).abs().max()) / scale <= 1e-5
 
 
 def test_roi_align_fwd_reads_zero_past_the_end(cuda):
@@ -72,6 +101,26 @@ def test_roi_align_fwd_reads_zero_past_the_end(cuda):
     ones = torch.ones(1, 1, 2, device=cuda)
     out = roi_align_fwd(flat, geo, stride, ones, ones)
     torch.testing.assert_close(out[0, 0, 0], flat[6] + flat[7], rtol=0, atol=0)
+    # and before the start: window rows -1, 0 and 1, 2 with base -1
+    geo = torch.tensor([-1], dtype=torch.int32, device=cuda)
+    out = roi_align_fwd(flat, geo, stride, ones, ones)
+    torch.testing.assert_close(out[0, 0, 0], flat[0] + flat[1] + flat[2],
+                               rtol=0, atol=0)
+
+
+def test_roi_align_fwd_skips_a_non_finite_feature_under_a_zero_weight(cuda):
+    """The one place where the kernel and its plain version differ on
+    purpose: the plain version computes 0 · inf = NaN, the kernel skips the
+    term (``roi_align_region_banded`` does the same)."""
+    flat = torch.ones(12, 32, device=cuda)
+    flat[5] = float("inf")
+    by = torch.tensor([[[1.0, 0.0, 0.0]]], device=cuda)
+    bx = torch.tensor([[[0.5, 0.5, 0.0]]], device=cuda)
+    base = torch.tensor([0], dtype=torch.int32, device=cuda)
+    stride = torch.tensor([3], dtype=torch.int32, device=cuda)
+    out = roi_align_fwd(flat, base, stride, by, bx)
+    assert out.flatten().tolist() == [1.0] * 32
+    assert bool(torch.isnan(roi_align_region_plain(flat, base, stride, by, bx)).all())
 
 
 def test_roi_align_fwd_rejects_what_it_cannot_take(cuda):
@@ -86,6 +135,9 @@ def test_roi_align_fwd_rejects_what_it_cannot_take(cuda):
     with pytest.raises(ValueError, match="output sizes"):
         big = torch.rand(4, 17, 20, device=cuda)
         roi_align_fwd(flat, base, stride, big, bx)
+    with pytest.raises(ValueError, match="16-byte aligned"):
+        shifted = torch.zeros(100 * 64 + 1, device=cuda)[1:].view(100, 64)
+        roi_align_fwd(shifted, base, stride, by, bx)
     empty = roi_align_fwd(flat, base[:0], stride[:0], by[:0], bx[:0])
     assert empty.shape == (0, 7, 7, 64)
 
