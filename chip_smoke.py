@@ -15,8 +15,11 @@ Phases, in order; any failure exits non-zero before the result is printed:
    pallas window geometry, f32 and bf16 features, also against the banded
    step-by-step version of the kernel's arithmetic; the region scatter on
    the cotangent windows of 512 and 2048 train ROIs (20×32 windows, C=256)
-   over the pyramids of batch 2 and 8. ROIs lie on all five levels, many on
-   one object, some with windows that run past the end of the buffer;
+   over the pyramids of batch 2 and 8, in each (input, accumulator) dtype
+   pair the config can produce, and with its plain version against the
+   float64 exact sum, element by element within the rounding bound of that
+   pair (``region_scatter_exact``). ROIs lie on all five levels, many on one
+   object, some with windows that run past the end of the buffer;
 4. the serving path: ``fpn_mask`` at full width (ResNet-50-FPN, 80 classes,
    800×1024, batch 1, seeded random weights, class scores spread to a
    chosen load that fills every detection slot) serves synthetic requests
@@ -32,14 +35,26 @@ Phases, in order; any failure exits non-zero before the result is printed:
 6. one train step from the same weights, batch and sampler draws on the card
    and on the CPU (plain versions), at full width on a 256×320 canvas with
    1000/256 proposals: losses and parameter updates must agree;
-7. the kernels line: each kernel on the inputs the main paths gave it, held
-   against its plain version, with both times, its bound (for the ROIAlign
-   forward the work these inputs need, with the dense count beside it) and,
-   where one PyTorch call computes the same function, that call's time; the
-   matrix products that build the region scatter's input are timed beside
-   it. With ``--against``, the ROIAlign forward source of another checkout
-   (same C interface) is built too and timed on the same inputs in the
-   order other, this, this, other.
+7. the serving path in bfloat16 (``model.dtype="bfloat16"``): requests as in
+   phase 4, launch counts read around them;
+8. the train path in bfloat16 with trainable BatchNorm
+   (``model.freeze_bn=False``), as in phase 5: launch counts, finite
+   losses, every parameter and every BatchNorm running statistic moved;
+9. bfloat16 on the card against the CPU, at 256×320: one request and one
+   train step (trainable BN, the RPN's shared conv zeroed so that every run
+   samples the same ROIs) in bf16 on the card, in bf16 on the CPU and in
+   float32 on the CPU; the card's distance from the CPU's float32 must stay
+   within twice the CPU bf16's own distance from it, plus a floor;
+10. the kernels line: each kernel on the inputs the main paths gave it,
+   held against its plain version, with both times, its bound (for the
+   ROIAlign forward the work these inputs need, with the dense count beside
+   it; for the region scatter its scratch's cost beside it) and, where one
+   PyTorch call computes the same function, that call's time; the matrix
+   products that build the region scatter's input are timed beside it, and
+   ``torch.profiler`` counts the device kernels of one region-scatter call
+   in each dtype pair. With ``--against``, the ROIAlign forward source of
+   another checkout (same C interface) is built too and timed on the same
+   inputs in the order other, this, this, other.
 
 The last three lines of standard output are the card's name and power limit,
 the kernels JSON line and ``{"ok": true, "device": {...}}``.
@@ -88,6 +103,12 @@ F32_FLOPS = 67e12  # H100 SXM float32 outside the tensor cores
 F32_TOL = 1e-5  # kernel vs plain, max abs / max |plain|: summation order
 #   (the region scatter adds with atomics, in an order that varies per run)
 BF16_TOL = 1e-2  # bf16 features, same measure
+F32, BF16 = torch.float32, torch.bfloat16
+# the region scatter's (d_regs dtype, accumulator) pairs; each is held to
+# region_scatter_exact's per-element rounding bound (scatter_check)
+SCATTER_PAIRS = [(F32, F32), (BF16, F32), (BF16, BF16), (F32, BF16)]
+BF16_FLOOR = 2e-3  # bf16 card vs CPU: the card's distance from the CPU's
+#   float32 ≤ 2 × the CPU bf16's own distance + this, of max |float32|
 SLICE_TOL = 1e-3  # GPU vs CPU request: max abs / max(1, max |CPU|)
 TRAIN_LOSS_TOL = 1e-3  # GPU vs CPU train step, each loss term, relative:
 #   ~60 layers of float32 sums in another order, forward
@@ -99,6 +120,8 @@ TRAIN_OWN_TOL = 5e-2  # and as a share of the same tensor's largest update,
 BUSY_CYCLES = 2_000_000  # spin ahead of a timed run: about 1.1 ms at 1.8 GHz
 N_REQUESTS = 8  # served through the predict path, after one warm-up request
 N_TRAIN_STEPS = 3  # taken through the train path, after one warm-up step
+BF16_SETTINGS = dict(dtype="bfloat16")  # phases 7 and 9's serving
+BF16_TRAIN_SETTINGS = dict(dtype="bfloat16", freeze_bn=False)  # 8 and 9
 
 ROI_ALIGN = roi_align_cuda.roi_align_fwd
 SCATTER = region_scatter_cuda.region_scatter
@@ -158,24 +181,62 @@ def roi_align_bound(flat, base, stride, by, bx) -> dict:
             "reached": work["reached_elements"] / work["window_elements"]}
 
 
-def region_scatter_bound(d_regs, base, stride, s_rows) -> dict:
+def region_scatter_bound(d_regs, base, stride, s_rows, acc_dtype=F32) -> dict:
     """Bound of one region scatter on these inputs, in ms: the cotangent
-    windows and their geometry read once and the (s_rows, C) output written
-    once, over the memory rate; one add per window element over the f32
-    peak."""
-    n_bytes = 4 * d_regs.numel() + 8 * base.numel() + 4 * s_rows * d_regs.shape[-1]
+    windows and their geometry read once and the (s_rows, C) output, in the
+    windows' dtype, written once, over the memory rate; one add per window
+    element over the f32 peak. Beside it and not in it, ``scratch_ms``: what
+    this design adds when the accumulator's dtype is not the output's, its
+    (s_rows, C) scratch written zeroed and read by the cast at the least
+    (the TPU kernel sums in on-chip memory and needs no scratch)."""
+    c = d_regs.shape[-1]
+    n_bytes = (d_regs.numel() * d_regs.element_size() + 8 * base.numel()
+               + s_rows * c * d_regs.element_size())
+    scratch = 0 if acc_dtype == d_regs.dtype else 2 * s_rows * c * acc_dtype.itemsize
     return {"bytes_ms": 1e3 * n_bytes / HBM_BYTES_PER_S,
-            "ops_ms": 1e3 * d_regs.numel() / F32_FLOPS}
+            "ops_ms": 1e3 * d_regs.numel() / F32_FLOPS,
+            "scratch_ms": 1e3 * scratch / HBM_BYTES_PER_S}
 
 
-def index_add_ms(d_regs, base, stride, s_rows) -> float:
+def index_add_ms(d_regs, base, stride, s_rows, acc_dtype=None) -> float:
     """The one PyTorch call that computes the region scatter: ``index_add_``
-    of the flattened windows on precomputed row indices."""
+    of the flattened windows on precomputed row indices, into an output of
+    the windows' dtype (so it sums in that dtype, whatever the kernel call's
+    ``acc_dtype``)."""
     r, t, tx, c = d_regs.shape
     rows = region_scatter_cuda.scatter_rows(base, stride, t, tx, s_rows).reshape(-1)
-    out = torch.zeros((s_rows + 1, c), device=d_regs.device)
+    out = torch.zeros((s_rows + 1, c), dtype=d_regs.dtype, device=d_regs.device)
     src = d_regs.reshape(-1, c)
     return time_ms(lambda: out.index_add_(0, rows, src))
+
+
+def scatter_check(got, want, args, label: str) -> dict:
+    """Hold a region scatter's output ``got`` and its plain version's
+    ``want`` (both from ``args``) to the float64 exact sum: every element of
+    both within :func:`region_scatter_cuda.region_scatter_exact`'s rounding
+    bound, and, with a bf16 accumulator (whose bound grows with the square
+    of the windows that meet on an element), the kernel's mean error at
+    most twice the plain version's (the same rounded adds in another
+    order). Returns the kernel's max and mean error and the plain version's
+    mean error, as shares of max |exact|, and the largest share of its
+    bound that an element's error takes."""
+    exact, bound = region_scatter_cuda.region_scatter_exact(*args)
+    err = (got.double() - exact).abs()
+    plain_err = (want.double() - exact).abs()
+    scale = max(float(exact.abs().max()), 1e-30)
+    out = dict(err=float(err.max()) / scale, mean=float(err.mean()) / scale,
+               plain_mean=float(plain_err.mean()) / scale,
+               share=float(torch.where(bound > 0, err / bound, err).max()))
+    if not bool((plain_err <= bound).all()):
+        fail(f"region_scatter plain version on {label}: outside the rounding "
+             f"bound, so the bound is wrong")
+    if not bool((err <= bound).all()):
+        fail(f"region_scatter on {label}: {int((err > bound).sum())} elements "
+             f"outside their rounding bound ({out})")
+    if args[4] == BF16 and not out["mean"] <= 2 * out["plain_mean"]:
+        fail(f"region_scatter on {label}: mean error over twice the plain "
+             f"version's ({out})")
+    return out
 
 
 def rel_err(got, want) -> float:
@@ -339,26 +400,30 @@ def phase_region_scatter_vs_plain(seed: int) -> float:
         d_regs.reshape(b, n, t, tx, c)[:, :n_pos] += roi_align_ops._d_regions(
             by_m, bx_m, torch.randn(b * n_pos, 14, 14, c, device="cuda", generator=gen)
         ).reshape(b, n_pos, t, tx, c)
-        args = (d_regs, base, stride, s_rows)
-        want = plain(*args)
-        err = rel_err(SCATTER(*args), want)
-        torch.cuda.synchronize()
-        ms = time_ms(lambda: SCATTER(*args))
-        plain_ms = time_ms(lambda: plain(*args), runs=7, calls=3)
-        lib_ms = index_add_ms(*args)
-        bound = max(region_scatter_bound(*args).values())
         past = int((row_ids[:, -1] + tx > s_rows).sum())
         nonzero = float((d_regs != 0).float().mean())
-        print(f"[kernels] region_scatter b{b} R={b * n} window {t}x{tx} C={c} "
-              f"S={s_rows}, {past} past the buffer's end, {nonzero:.3f} of "
-              f"d_regs nonzero: err {err:.2e}, {ms:.4f} ms (plain "
-              f"{plain_ms:.4f} ms, index_add_ {lib_ms:.4f} ms, bound "
-              f"{bound:.4f} ms)")
-        if not err <= F32_TOL:
-            fail(f"region_scatter error {err} > {F32_TOL}")
         if past == 0:
             fail("region_scatter case has no window past the buffer's end")
-        worst = max(worst, err)
+        for dt, acc in SCATTER_PAIRS:
+            args = (d_regs.to(dt), base, stride, s_rows, acc)
+            label = f"b{b} R={b * n} {str(dt)[6:]} in, {str(acc)[6:]} accumulator"
+            check = scatter_check(SCATTER(*args), plain(*args), args, label)
+            torch.cuda.synchronize()
+            ms = time_ms(lambda: SCATTER(*args))
+            plain_ms = time_ms(lambda: plain(*args), runs=7, calls=3)
+            lib_ms = index_add_ms(*args)
+            b_ms = region_scatter_bound(*args)
+            print(f"[kernels] region_scatter {label}, window {t}x{tx} C={c} "
+                  f"S={s_rows}, {past} past the buffer's end, {nonzero:.3f} of "
+                  f"d_regs nonzero: against the exact sum err {check['err']:.2e}"
+                  f" (mean {check['mean']:.2e}, plain's mean "
+                  f"{check['plain_mean']:.2e}; worst {check['share']:.3f} of an "
+                  f"element's rounding bound), {ms:.4f} ms (plain "
+                  f"{plain_ms:.4f} ms, index_add_ {lib_ms:.4f} ms, bound "
+                  f"{max(b_ms['bytes_ms'], b_ms['ops_ms']):.4f} ms, scratch "
+                  f"beside it {b_ms['scratch_ms']:.4f} ms)")
+            if dt == acc == F32:
+                worst = max(worst, check["err"])
     return worst
 
 
@@ -385,18 +450,23 @@ def read_launches() -> dict:
     return {kernel.name: kernel.launches for kernel, *_ in KERNELS}
 
 
-def phase_predict(n_requests: int, seed: int):
-    """Serve requests through the port's predict on the card."""
-    cfg = predict_config("fpn_mask", 1, 800, 1024)
+def phase_predict(n_requests: int, seed: int, settings=None):
+    """Serve requests through the port's predict on the card; with
+    ``settings`` (model config fields) in that configuration, else float32
+    and held against the CPU."""
+    cfg = cfg_lib._rep(predict_config("fpn_mask", 1, 800, 1024),
+                       model=settings or {})
+    tag = "predict" if settings is None else "bf16-predict"
     t0 = time.perf_counter()
     model = spread_class_scores(MaskRCNN(cfg, seed=seed))
     checksum = sum(float(v.double().abs().sum()) for v in model.state_dict().values())
     predict = make_predict_fn(cfg, model)
     data = SyntheticRequests(cfg, seed=seed)
     requests = [tuple(data.batch(i)) for i in range(n_requests)]
-    print(f"[predict] fpn_mask 800x1024 b1, {cfg.model.n_fg_class} classes, "
-          f"weights' abs sum {checksum:.6f}, model and {n_requests} requests "
-          f"ready in {time.perf_counter() - t0:.1f} s")
+    print(f"[{tag}] fpn_mask 800x1024 b1 {cfg.model.dtype}, "
+          f"{cfg.model.n_fg_class} classes, weights' abs sum {checksum:.6f}, "
+          f"model and {n_requests} requests ready in "
+          f"{time.perf_counter() - t0:.1f} s")
 
     # warm-up request 0, keeping the kernel inputs it makes (2 per request)
     capture = Capture(ROI_ALIGN, 2)
@@ -410,23 +480,24 @@ def phase_predict(n_requests: int, seed: int):
     reset_launches()
     times, dets = time_requests(predict, requests, warmup=0)
     launches = read_launches()
-    print(f"[predict] launches over {n_requests} requests: {launches}")
-    if launches["roi_align_fwd"] != 2 * n_requests:
-        fail(f"roi_align_fwd launched {launches['roi_align_fwd']} times, "
-             f"expected 2 per request")
+    print(f"[{tag}] launches over {n_requests} requests: {launches}")
+    if launches != {"roi_align_fwd": 2 * n_requests, "region_scatter": 0}:
+        fail(f"expected 2 forward launches per request, got {launches}")
     for det in dets:
         for name, value in det._asdict().items():
             if value is not None and value.is_floating_point() and not torch.isfinite(value).all():
                 fail(f"non-finite {name}")
         if det.masks.shape != (1, cfg.eval.max_detections, 28, 28):
             fail(f"mask shape {tuple(det.masks.shape)}")
-    print(f"[predict] request p50 {percentile(times, 0.5):.3f} ms, max "
+    print(f"[{tag}] request p50 {percentile(times, 0.5):.3f} ms, max "
           f"{max(times):.3f} ms (CUDA events, {n_requests} requests after 1 "
           f"warm-up); valid detections per request "
           f"{[int(d.valid.sum()) for d in dets]} of {cfg.eval.max_detections}")
     pairs = passing_pairs(cfg, model, predict, requests)
-    print(f"[predict] (ROI, class) pairs above score_thresh "
+    print(f"[{tag}] (ROI, class) pairs above score_thresh "
           f"{cfg.eval.score_thresh} per request (untimed rerun): {pairs}")
+    if settings is not None:
+        return launches, capture.calls
 
     # the same request on the CPU, through the same port and weights
     t0 = time.perf_counter()
@@ -451,15 +522,19 @@ def snapshot(model) -> dict:
     return {k: v.detach().clone() for k, v in model.named_parameters()}
 
 
-def phase_train(n_steps: int, seed: int):
-    """Take optimizer steps through the port's train step on the card."""
-    cfg = predict_config("fpn_mask", 2, 800, 1024)
+def phase_train(n_steps: int, seed: int, settings=None):
+    """Take optimizer steps through the port's train step on the card; with
+    ``settings`` (model config fields) in that configuration."""
+    cfg = cfg_lib._rep(predict_config("fpn_mask", 2, 800, 1024),
+                       model=settings or {})
+    tag = "train" if settings is None else "bf16-train"
     t0 = time.perf_counter()
     state = create_train_state(cfg, MaskRCNN(cfg, seed=seed), seed)
     step = make_train_step(cfg)
     data = SyntheticDetectionData(cfg, seed=seed)
     batches = [data.batch(i) for i in range(n_steps + 1)]
-    print(f"[train] fpn_mask 800x1024 b2, {cfg.model.n_fg_class} classes, "
+    print(f"[{tag}] fpn_mask 800x1024 b2 {cfg.model.dtype}, freeze_bn "
+          f"{cfg.model.freeze_bn}, {cfg.model.n_fg_class} classes, "
           f"{cfg.proposals.n_train_pre_nms}/{cfg.proposals.n_train_post_nms} "
           f"proposals, {cfg.sampler.n_sample} sampled ROIs per image; model "
           f"and {n_steps + 1} batches ready in {time.perf_counter() - t0:.1f} s")
@@ -479,16 +554,17 @@ def phase_train(n_steps: int, seed: int):
         roi_align_ops._d_regions = d_regions
 
     before = snapshot(state.model)
+    stats = running_statistics(state.model)
     reset_launches()
     times, metrics, peak = time_train_steps(step, state, batches[1:], warmup=0)
     launches = read_launches()
-    print(f"[train] launches over {n_steps} steps: {launches}")
+    print(f"[{tag}] launches over {n_steps} steps: {launches}")
     if launches != {"roi_align_fwd": 2 * n_steps, "region_scatter": n_steps}:
         fail(f"expected 2 forward launches and 1 region scatter per step, "
              f"got {launches}")
     for i, m in enumerate(metrics):
         m = {k: float(v) for k, v in m.items()}
-        print(f"[train] step {i + 1}: " + ", ".join(
+        print(f"[{tag}] step {i + 1}: " + ", ".join(
             f"{k} {v:.4f}" for k, v in m.items() if k.endswith("loss"))
             + f"; sampled slots valid {int(m['n_valid_rois'])}, positive "
               f"{int(m['n_pos_rois'])} of {2 * cfg.sampler.n_sample}")
@@ -497,16 +573,28 @@ def phase_train(n_steps: int, seed: int):
     after = snapshot(state.model)
     still = [k for k in before if torch.equal(before[k], after[k])]
     bn = "extractor.resnet.bn1.weight"
-    print(f"[train] {len(before) - len(still)} of {len(before)} parameter "
+    print(f"[{tag}] {len(before) - len(still)} of {len(before)} parameter "
           f"tensors moved; {bn} by "
           f"{float((after[bn] - before[bn]).abs().max()):.3e}")
     if still or state.step != n_steps + 1:
         fail(f"parameters that did not move: {still[:5]}; step {state.step}")
+    if not cfg.model.freeze_bn:
+        now = running_statistics(state.model)
+        unmoved = [k for k in stats if torch.equal(stats[k], now[k])]
+        print(f"[{tag}] {len(stats) - len(unmoved)} of {len(stats)} BatchNorm "
+              f"running statistics moved")
+        if unmoved:
+            fail(f"running statistics that did not move: {unmoved[:5]}")
     ms = statistics.median(times)
-    print(f"[train] step p50 {ms:.3f} ms, max {max(times):.3f} ms (CUDA "
+    print(f"[{tag}] step p50 {ms:.3f} ms, max {max(times):.3f} ms (CUDA "
           f"events, {n_steps} steps after 1 warm-up): {2e3 / ms:.3f} images/s; "
           f"peak memory {peak / 2**30:.3f} GiB")
     return launches, fwd.calls, bwd.calls, products.calls
+
+
+def running_statistics(model) -> dict:
+    return {k: v.clone() for k, v in model.state_dict().items()
+            if k.endswith(("running_mean", "running_var"))}
 
 
 def phase_train_gpu_vs_cpu(seed: int):
@@ -559,6 +647,108 @@ def phase_train_gpu_vs_cpu(seed: int):
         fail(f"GPU and CPU updates of {worst} differ by {over[worst]} of its own")
 
 
+def quiet_rpn(model):
+    """Zero the RPN's shared 3×3 conv in place: every anchor scores the same
+    and every run proposes and samples the same ROIs (its ReLU passes no
+    gradient at 0, so it stays zero)."""
+    with torch.no_grad():
+        model.rpn_head.conv.weight.zero_()
+        model.rpn_head.conv.bias.zero_()
+    return model
+
+
+def bf16_distances(runs: dict, what: str) -> None:
+    """``runs`` maps 'card16', 'cpu16', 'cpu32' to equal-shaped tensors;
+    fail unless the card's distance from the CPU's float32 is within twice
+    the CPU bf16's own distance from it plus ``BF16_FLOOR``."""
+    want = runs["cpu32"].float().cpu()
+    scale = max(float(want.abs().max()), 1e-30)
+    card = float((runs["card16"].float().cpu() - want).abs().max()) / scale
+    cpu = float((runs["cpu16"].float().cpu() - want).abs().max()) / scale
+    print(f"[bf16-vs-cpu] {what}: card bf16 {card:.3e}, CPU bf16 {cpu:.3e} "
+          f"of max |CPU float32| {scale:.3e}")
+    if not card <= 2 * cpu + BF16_FLOOR:
+        fail(f"bf16 {what}: the card is {card} from the CPU's float32, the "
+             f"CPU's bf16 {cpu}")
+
+
+def phase_bf16_gpu_vs_cpu(seed: int):
+    """bfloat16 on the card against the CPU at 256×320: one request (80
+    classes, spread class scores) and one train step (trainable BN, the
+    RPN's shared conv zeroed, 1000/256 proposals) in bf16 on the card, bf16
+    on the CPU and float32 on the CPU, from the same weights, inputs and
+    sampler draws."""
+    t0 = time.perf_counter()
+    cfg32 = predict_config("fpn_mask", 1, 256, 320)
+    card = spread_class_scores(MaskRCNN(
+        cfg_lib._rep(cfg32, model=BF16_SETTINGS), seed=seed))
+    models = {"card16": card}
+    for name, settings in (("cpu16", BF16_SETTINGS), ("cpu32", {})):
+        models[name] = MaskRCNN(cfg_lib._rep(cfg32, model=settings), device="cpu")
+        models[name].load_state_dict(card.state_dict())
+    req = SyntheticRequests(cfg32, seed=seed).batch(0)
+    dets, rpn = {}, {}
+    for name, model in models.items():
+        dets[name] = make_predict_fn(model.cfg, model)(*req)
+        with torch.no_grad():
+            rpn[name] = model(torch.as_tensor(req.images, device=model.device))[1:]
+    ref = dets["cpu32"]
+    for i, what in enumerate(("RPN locs", "RPN scores")):
+        bf16_distances({k: v[i] for k, v in rpn.items()}, what)
+    counts = {k: int(d.valid.sum()) for k, d in dets.items()}
+    k = min(counts.values())
+    print(f"[bf16-vs-cpu] request: valid detections {counts}; the top {k} "
+          f"scores compared, order-free (bf16 reorders near-tied detections)")
+    if k < min(counts["cpu32"], 10):
+        fail(f"bf16 request: valid detections {counts}")
+    bf16_distances({name: d.scores[d.valid].sort(descending=True).values[:k]
+                    for name, d in dets.items()}, "top valid detection scores")
+    flat = ref.boxes.reshape(-1, 4)
+    geometry = (torch.zeros(flat.shape[0], dtype=torch.int32),
+                map_rois_to_fpn_levels(flat), ref.labels.reshape(-1))
+    masks = {}
+    for name, model in models.items():
+        dev = model.device
+        with torch.no_grad():
+            feats = model.extract(torch.as_tensor(req.images, device=dev))
+            masks[name] = torch.sigmoid(model.head_mask(
+                feats, flat.to(dev), *(t.to(dev) for t in geometry)))
+    bf16_distances(masks, "pass-2 masks on the CPU float32's detections")
+
+    cfg = cfg_lib._rep(predict_config("fpn_mask", 2, 256, 320),
+                       proposals=dict(n_train_pre_nms=1000, n_train_post_nms=256))
+    batch = SyntheticDetectionData(cfg, seed=seed).batch(0)
+    gen = torch.Generator().manual_seed(seed)
+    n_anchor = 3 * sum(h * w for h, w in pyramid_shapes(cfg, (256, 320)))
+    draws = SamplerDraws(
+        torch.rand((2, 2, 256 + cfg.train.max_gt), generator=gen),
+        torch.rand((2, 2, n_anchor), generator=gen))
+    weights = quiet_rpn(MaskRCNN(cfg, device="cpu", seed=seed)).state_dict()
+    losses, updates = {}, {}
+    for name, device, settings in (("card16", "cuda", BF16_TRAIN_SETTINGS),
+                                   ("cpu16", "cpu", BF16_TRAIN_SETTINGS),
+                                   ("cpu32", "cpu", dict(freeze_bn=False))):
+        c = cfg_lib._rep(cfg, model=settings)
+        model = MaskRCNN(c, device=device)
+        model.load_state_dict(weights)
+        before = snapshot(model)
+        m = make_train_step(c)(create_train_state(c, model), batch, draws)
+        losses[name] = {k: float(v) for k, v in m.items()}
+        updates[name] = {k: (v - before[k]).cpu() for k, v in snapshot(model).items()}
+    print(f"[bf16-vs-cpu] train step losses: {losses}")
+    for k in ("n_valid_rois", "n_pos_rois"):
+        if len({losses[name][k] for name in losses}) != 1:
+            fail(f"bf16 train step: the runs sampled different {k}")
+    for k in ("loss", "rpn_loc_loss", "rpn_cls_loss", "roi_loc_loss",
+              "roi_cls_loss", "mask_loss"):
+        bf16_distances({name: torch.tensor(v[k]) for name, v in losses.items()},
+                       f"train {k}")
+    keys = list(updates["cpu32"])
+    bf16_distances({name: torch.cat([u[k].reshape(-1) for k in keys])
+                    for name, u in updates.items()}, "train parameter update")
+    print(f"[bf16-vs-cpu] done in {time.perf_counter() - t0:.1f} s")
+
+
 def time_calls(kernel, plain, bound, calls, label: str) -> dict:
     """Hold ``kernel`` against ``plain`` on each of ``calls`` (a path's own
     inputs) and time both → sums over the calls."""
@@ -567,7 +757,12 @@ def time_calls(kernel, plain, bound, calls, label: str) -> dict:
     for args in calls:
         got, want = kernel(*args), plain(*args)
         rel = rel_err(got, want)
-        if not rel <= F32_TOL:
+        check = ""
+        if kernel.name == SCATTER.name:
+            c = scatter_check(got, want, args, f"the {label} path's inputs")
+            check = (f", against the exact sum {c['err']:.2e} (worst "
+                     f"{c['share']:.3f} of an element's rounding bound)")
+        elif not rel <= F32_TOL:
             fail(f"{kernel.name} on the {label} path's inputs: error "
                  f"{rel} > {F32_TOL}")
         ms = time_ms(lambda: kernel(*args))
@@ -578,21 +773,26 @@ def time_calls(kernel, plain, bound, calls, label: str) -> dict:
             dense = (f" (dense count: bytes {b['dense_bytes_ms']:.4f} / operations "
                      f"{b['dense_ops_ms']:.4f} ms; {b.pop('reached'):.3f} of the "
                      f"windows reached)")
+        if "scratch_ms" in b:  # the region scatter's
+            dense = f" (this design's scratch beside it {b['scratch_ms']:.4f} ms)"
         print(f"[kernels] {kernel.name} {label}-path call {call_shape(kernel, args)}: "
               f"{ms:.4f} ms, plain {plain_ms:.4f} ms, bound bytes "
               f"{b['bytes_ms']:.4f} / operations {b['ops_ms']:.4f} ms{dense}; "
               f"the bound is {max(b['bytes_ms'], b['ops_ms']) / ms:.3f} of the "
-              f"kernel's time; error {rel:.2e}")
+              f"kernel's time; error {rel:.2e} of max |plain|{check}")
         out["ms"] += ms
         out["plain_ms"] += plain_ms
         for key, value in b.items():
             bounds[key] = bounds.get(key, 0.0) + value
-        out["max_abs_err"] = max(out["max_abs_err"], float((got - want).abs().max()))
+        out["max_abs_err"] = max(out["max_abs_err"],
+                                 float((got.float() - want.float()).abs().max()))
         out["rel_err"] = max(out["rel_err"], rel)
     out["bound_ms"] = max(bounds["bytes_ms"], bounds["ops_ms"])
     out["bound_by"] = "bytes" if bounds["bytes_ms"] >= bounds["ops_ms"] else "operations"
     if "dense_ops_ms" in bounds:
         out["bound_dense_ms"] = max(bounds["dense_bytes_ms"], bounds["dense_ops_ms"])
+    if "scratch_ms" in bounds:
+        out["scratch_ms"] = bounds["scratch_ms"]
     return out
 
 
@@ -608,12 +808,43 @@ def d_regs_matmul_ms(product_calls) -> float:
     scatter's input, on the cotangents the train path gave them (one call
     for the box pool, one for the mask pool), summed."""
     total = 0.0
-    for by, bx, g in product_calls:
-        ms = time_ms(lambda: roi_align_ops._d_regions(by, bx, g), runs=7, calls=3)
-        print(f"[kernels] d_regs products train-path call {tuple(g.shape)} -> "
+    for args in product_calls:
+        by, bx, g, dtype = args
+        ms = time_ms(lambda: roi_align_ops._d_regions(*args), runs=7, calls=3)
+        print(f"[kernels] d_regs products {str(dtype)[6:]} train-path call "
+              f"{tuple(g.shape)} -> "
               f"{(g.shape[0], by.shape[2], bx.shape[2], g.shape[3])}: {ms:.4f} ms")
         total += ms
     return total
+
+
+def device_kernels(fn) -> list[str]:
+    """Names of the device kernels that one call of ``fn`` runs, as
+    ``torch.profiler`` traces them (memory copies and sets left out)."""
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    return [e.name for e in prof.events()
+            if e.device_type == torch.autograd.DeviceType.CUDA
+            and not e.name.startswith(("Memcpy", "Memset"))]
+
+
+def scatter_kernels_per_call(paths: dict) -> dict:
+    """Device kernels one region-scatter call runs, in each (input,
+    accumulator) pair, on the train paths' own windows: the zeroing of the
+    accumulator, the scatter and, with a scratch, its cast."""
+    by_dtype = {v[2][0][0].dtype: v[2][0] for v in paths.values() if v[2]}
+    counts = {}
+    for dt, acc in SCATTER_PAIRS:
+        d_regs, base, stride, s_rows, _ = by_dtype[dt]
+        names = device_kernels(lambda: SCATTER(d_regs, base, stride, s_rows, acc))
+        key = f"{str(dt)[6:]} in, {str(acc)[6:]} accumulator"
+        print(f"[kernels] region_scatter {key}: {len(names)} device kernels a "
+              f"call (torch.profiler): {[n[:60] for n in names]}")
+        counts[key] = len(names)
+    return counts
 
 
 def time_by_roi_count(args):
@@ -647,38 +878,48 @@ def time_against(other_source: str, calls_by_path: dict):
                   f"(other's error {err:.2e})")
 
 
-def phase_kernels_line(predict_launches, predict_calls, train_launches,
-                       train_fwd_calls, train_bwd_calls, product_calls):
+def phase_kernels_line(paths: dict):
     """Time each kernel on the inputs the main paths gave it (one request's
     or one step's calls, summed), beside its plain version and its bound.
-    An entry's top-level numbers are those of the first path that runs the
-    kernel; ``launches`` counts every path, ``launches_by_path`` each."""
+    ``paths`` maps each path to (launches, ROIAlign calls, region-scatter
+    calls, product calls). An entry's top-level numbers are those of the
+    first path that runs the kernel (float32 predict for the ROIAlign
+    forward, float32 train for the region scatter), the others are under
+    the path's name; ``launches`` counts every path, ``launches_by_path``
+    each."""
     (_, fwd_plain, fwd_src, fwd_repl), (_, bwd_plain, bwd_src, bwd_repl) = KERNELS
-    fwd_predict = time_calls(ROI_ALIGN, fwd_plain, roi_align_bound,
-                             predict_calls, "predict")
-    fwd_train = time_calls(ROI_ALIGN, fwd_plain, roi_align_bound,
-                           train_fwd_calls, "train")
-    bwd_train = time_calls(SCATTER, bwd_plain, region_scatter_bound,
-                           train_bwd_calls, "train")
-    for args in predict_calls:
+    fwd, bwd, lib, products = {}, {}, {}, {}
+    for path, (_, fwd_calls, bwd_calls, product_calls) in paths.items():
+        fwd[path] = time_calls(ROI_ALIGN, fwd_plain, roi_align_bound,
+                               fwd_calls, path)
+        if bwd_calls:
+            bwd[path] = time_calls(SCATTER, bwd_plain, region_scatter_bound,
+                                   bwd_calls, path)
+            lib[path] = sum(index_add_ms(*args) for args in bwd_calls)
+            print(f"[kernels] region_scatter {path}-path call: index_add_ "
+                  f"{lib[path]:.4f} ms (in {bwd_calls[0][0].dtype})")
+            products[path] = d_regs_matmul_ms(product_calls)
+    for args in paths["predict"][1]:
         time_by_roi_count(args)
-    lib_ms = sum(index_add_ms(*args) for args in train_bwd_calls)
-    print(f"[kernels] region_scatter train-path call: index_add_ {lib_ms:.4f} ms")
-    products_ms = d_regs_matmul_ms(product_calls)
-    n_fwd = {"predict": predict_launches["roi_align_fwd"],
-             "train": train_launches["roi_align_fwd"]}
-    n_bwd = {"predict": predict_launches["region_scatter"],
-             "train": train_launches["region_scatter"]}
+    per_call = scatter_kernels_per_call(paths)  # after the timings: traced
+    n = {name: {path: v[0][name] for path, v in paths.items()}
+         for name in (ROI_ALIGN.name, SCATTER.name)}
+    first_fwd, first_bwd = "predict", "train"
     return [
         {"name": ROI_ALIGN.name, "route": "cuda", "source": fwd_src,
-         "replaces": fwd_repl, "launches": sum(n_fwd.values()),
-         "launches_by_path": n_fwd, **fwd_predict,
+         "replaces": fwd_repl, "launches": sum(n[ROI_ALIGN.name].values()),
+         "launches_by_path": n[ROI_ALIGN.name], **fwd[first_fwd],
          "library_ms": None,  # no one PyTorch call computes ROIAlign
-         "train_step": fwd_train},
+         **{f"{path}_path": v for path, v in fwd.items() if path != first_fwd}},
         {"name": SCATTER.name, "route": "cuda", "source": bwd_src,
-         "replaces": bwd_repl, "launches": sum(n_bwd.values()),
-         "launches_by_path": n_bwd, **bwd_train, "library_ms": lib_ms,
-         "d_regs_matmul_ms": products_ms},
+         "replaces": bwd_repl, "launches": sum(n[SCATTER.name].values()),
+         "launches_by_path": n[SCATTER.name],
+         "device_kernels_per_launch": per_call,
+         **bwd[first_bwd], "library_ms": lib[first_bwd],
+         "d_regs_matmul_ms": products[first_bwd],
+         **{f"{path}_path": {**v, "library_ms": lib[path],
+                             "d_regs_matmul_ms": products[path]}
+            for path, v in bwd.items() if path != first_bwd}},
     ]
 
 
@@ -695,14 +936,19 @@ def main(argv=None):
     worst = max(phase_roi_align_vs_plain(args.seed),
                 phase_region_scatter_vs_plain(args.seed))
     print(f"[kernels] worst f32 error against the plain versions: {worst:.2e}")
-    predict_launches, predict_calls = phase_predict(N_REQUESTS, args.seed)
-    train_launches, fwd_calls, bwd_calls, product_calls = phase_train(
-        N_TRAIN_STEPS, args.seed)
+    paths = {}
+    launches, calls = phase_predict(N_REQUESTS, args.seed)
+    paths["predict"] = (launches, calls, [], [])
+    paths["train"] = phase_train(N_TRAIN_STEPS, args.seed)
     phase_train_gpu_vs_cpu(args.seed)
-    entries = phase_kernels_line(predict_launches, predict_calls, train_launches,
-                                 fwd_calls, bwd_calls, product_calls)
+    launches, calls = phase_predict(N_REQUESTS, args.seed, BF16_SETTINGS)
+    paths["bf16_predict"] = (launches, calls, [], [])
+    paths["bf16_train"] = phase_train(N_TRAIN_STEPS, args.seed,
+                                      BF16_TRAIN_SETTINGS)
+    phase_bf16_gpu_vs_cpu(args.seed)
+    entries = phase_kernels_line(paths)
     if args.against:
-        time_against(args.against, {"predict": predict_calls, "train": fwd_calls})
+        time_against(args.against, {path: v[1] for path, v in paths.items()})
     torch.cuda.synchronize()
     print(f"[done] every phase passed in {time.perf_counter() - t0:.1f} s")
 

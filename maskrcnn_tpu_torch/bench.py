@@ -3,10 +3,21 @@ GPU (counterpart of the JAX package's ``bench.py``).
 
     python -m maskrcnn_tpu_torch.bench --mode predict|train [--preset fpn_mask]
         [--batch B] [--height 800] [--width 1024] [--steps 20]
-        [--roi-align auto] [--profile N]
+        [--roi-align auto] [--dtype float32|bfloat16]
+        [--roi-align-acc float32|bfloat16] [--remat] [--grad-accum N]
+        [--momentum-dtype bfloat16] [--set SECTION.KEY=VALUE ...]
+        [--profile N]
+
+The JAX package's bench options: ``--dtype`` is ``model.dtype`` (float32
+by default, so earlier numbers stay comparable), ``--roi-align-acc`` the
+accumulator of the shared pool's backward, ``--remat`` checkpoints the
+backbone, ``--grad-accum`` splits a step into micro-batches,
+``--momentum-dtype`` stores the momentum buffer in bf16, and ``--set``
+applies any config override (``--set model.freeze_bn=False`` trains the
+BatchNorms). The line records the settings it ran with.
 
 ``--mode train`` (batch 2 unless given) takes optimizer steps on synthetic
-batches from seeded random weights (float32, TF32 off) through
+batches from seeded random weights (TF32 off) through
 :func:`maskrcnn_tpu_torch.train.step.make_train_step` and prints ONE JSON
 line: the median milliseconds per step after warm-up (CUDA events), steps
 and images per second, the peak device memory of a step, the last step's
@@ -18,7 +29,7 @@ auto, region or fused).
 
 ``--mode predict`` (batch 1 unless given) serves synthetic requests (seeded
 random weights with the class scores spread as :func:`spread_class_scores`
-says, float32, TF32 off) through :func:`maskrcnn_tpu_torch.eval.predict.make_predict_fn` and prints
+says, TF32 off) through :func:`maskrcnn_tpu_torch.eval.predict.make_predict_fn` and prints
 ONE JSON line: p50/p90 milliseconds per request, timed with CUDA events
 after warm-up, with the card's name and power limit and the (ROI, class)
 pairs that clear the score threshold in each of the 4 distinct requests
@@ -63,6 +74,28 @@ def predict_config(preset: str, batch: int, height: int, width: int,
     return cfg_lib._rep(cfg_lib.PRESETS[preset](),
                         train=dict(batch_size=batch, image_size=(height, width)),
                         model=dict(roi_align=roi_align))
+
+
+def bench_config(args, batch: int) -> cfg_lib.Config:
+    """The preset at the requested size with the command line's settings."""
+    cfg = cfg_lib._rep(
+        predict_config(args.preset, batch, args.height, args.width,
+                       args.roi_align),
+        model=dict(dtype=args.dtype, roi_align_acc=args.roi_align_acc,
+                   remat=args.remat),
+        train=dict(grad_accum_steps=args.grad_accum,
+                   momentum_dtype=args.momentum_dtype))
+    return cfg_lib.apply_overrides(cfg, args.set)
+
+
+def settings(cfg: cfg_lib.Config) -> dict:
+    """The settings a line ran with, by config name."""
+    m, t = cfg.model, cfg.train
+    return {"model.dtype": m.dtype, "model.freeze_bn": m.freeze_bn,
+            "model.remat": m.remat, "model.roi_align": m.roi_align,
+            "model.roi_align_acc": m.roi_align_acc,
+            "train.grad_accum_steps": t.grad_accum_steps,
+            "train.momentum_dtype": t.momentum_dtype}
 
 
 def spread_class_scores(model, scale: float = 8.0):
@@ -207,8 +240,7 @@ def percentile(times, q: float) -> float:
 
 def bench_train(args) -> dict:
     batch = args.batch or 2
-    cfg = predict_config(args.preset, batch, args.height, args.width,
-                         args.roi_align)
+    cfg = bench_config(args, batch)
     state = create_train_state(cfg, MaskRCNN(cfg, seed=0))
     step = make_train_step(cfg)
     data = SyntheticDetectionData(cfg, seed=0)
@@ -237,6 +269,7 @@ def bench_train(args) -> dict:
         "peak_memory_gib": peak / 2**30,
         "last_step": {k: float(v) for k, v in metrics[-1].items()},
         "kernel_launches_per_step": launches,
+        "settings": settings(cfg),
         **proposals,
         **profiled,
     }
@@ -256,6 +289,20 @@ def main(argv=None):
                    choices=["auto", "region", "gather", "pallas", "fused"],
                    help="ROIAlign form of the predict path; the train path "
                         "takes auto, region or fused")
+    p.add_argument("--dtype", default="float32", choices=["float32", "bfloat16"],
+                   help="model.dtype: the compute dtype of convs and dense layers")
+    p.add_argument("--roi-align-acc", default="float32",
+                   choices=["float32", "bfloat16"],
+                   help="model.roi_align_acc: the region scatter's accumulator")
+    p.add_argument("--remat", action="store_true",
+                   help="model.remat: checkpoint the backbone")
+    p.add_argument("--grad-accum", type=int, default=1, metavar="N",
+                   help="train.grad_accum_steps")
+    p.add_argument("--momentum-dtype", default=None, choices=["bfloat16"],
+                   help="train.momentum_dtype (default: float32)")
+    p.add_argument("--set", action="append", default=[],
+                   metavar="SECTION.KEY=VALUE",
+                   help="config override, repeatable (e.g. model.freeze_bn=False)")
     p.add_argument("--profile", type=int, default=0, metavar="N",
                    help="then trace N more requests with torch.profiler and "
                         "add the device time by kernel to the line")
@@ -266,15 +313,14 @@ def main(argv=None):
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
 
-    common = {"roi_align": args.roi_align, "dtype": "float32",
+    common = {"roi_align": args.roi_align,
               "device": torch.cuda.get_device_name(0),
               "card": card_name_and_power_limit(), "torch": torch.__version__}
     if args.mode == "train":
         print(json.dumps({**bench_train(args), **common}))
         return
     batch = args.batch or 1
-    cfg = predict_config(args.preset, batch, args.height, args.width,
-                         args.roi_align)
+    cfg = bench_config(args, batch)
     model = spread_class_scores(MaskRCNN(cfg, seed=0))
     predict = make_predict_fn(cfg, model)
     data = SyntheticRequests(cfg, seed=0)
@@ -292,6 +338,7 @@ def main(argv=None):
         "steps": args.steps,
         "valid_detections_mean": sum(int(d.valid.sum()) for d in dets) / len(dets),
         "passing_pairs_per_request": pairs,
+        "settings": settings(cfg),
         **common,
         **profiled,
     }))

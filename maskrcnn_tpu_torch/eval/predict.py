@@ -9,6 +9,9 @@ top-``max_detections`` by score merges the classes. Pass 2 pools the
 refined boxes — at the pass-1 ROI's level under ``mask_levels="pass1"`` —
 and runs the class-gathered mask branch. Fixed shapes throughout:
 detections live in ``max_detections`` padded slots with a validity mask.
+With ``model.dtype="bfloat16"`` the convolutions and dense layers compute
+in bf16 and the pools read bf16 features; the RPN outputs, proposals, NMS,
+box decoding, scores and mask logits stay float32, as in the JAX package.
 """
 
 from __future__ import annotations

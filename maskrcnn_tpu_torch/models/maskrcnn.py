@@ -7,6 +7,12 @@ compose around the parameter-free glue (proposals, NMS, targets). Features trave
 one ``(B, H, W, C)`` tensor per level; they are NHWC views of the
 channels_last NCHW maps the convolutions produce, so the round trip copies
 nothing.
+
+``cfg.model.dtype`` is the compute dtype of every conv and dense layer
+(parameters stay float32), ``freeze_bn`` picks the running or, in training,
+the batch statistics of the backbone's BatchNorms, ``remat`` checkpoints
+the backbone, and ``roi_align_acc`` is the accumulator of the shared pool's
+backward (:func:`multilevel_roi_align_train`).
 """
 
 from __future__ import annotations
@@ -18,6 +24,7 @@ from maskrcnn_tpu_torch.config import Config
 from maskrcnn_tpu_torch.models.backbones.fpn import FPNBackbone
 from maskrcnn_tpu_torch.models.heads.fpn_heads import FPNMaskHead
 from maskrcnn_tpu_torch.models.init import init_weights
+from maskrcnn_tpu_torch.models.layers import compute_dtype
 from maskrcnn_tpu_torch.models.rpn import RPNHead
 from maskrcnn_tpu_torch.ops.roi_align import (
     multilevel_roi_align,
@@ -60,12 +67,12 @@ class MaskRCNN(nn.Module):
             raise NotImplementedError(
                 f"backbone={m.backbone!r} head={m.head!r}: the port covers the "
                 "FPN backbone with the FPN mask head")
-        if m.dtype != "float32":
-            raise NotImplementedError("the port computes in float32 only")
+        dt = compute_dtype(m.dtype)
+        self.acc_dtype = compute_dtype(m.roi_align_acc)
         self.cfg = cfg
-        self.extractor = FPNBackbone(m.fpn_channels)
-        self.rpn_head = RPNHead(m.fpn_channels, 256, len(cfg.anchors.ratios))
-        self.head = FPNMaskHead(m.n_class, m.n_mask_convs, m.fpn_channels)
+        self.extractor = FPNBackbone(m.fpn_channels, m.freeze_bn, dt, m.remat)
+        self.rpn_head = RPNHead(m.fpn_channels, 256, len(cfg.anchors.ratios), dt)
+        self.head = FPNMaskHead(m.n_class, m.n_mask_convs, m.fpn_channels, dt)
         init_weights(self, seed)
         self.eval()
         self.to(resolve_device(device), memory_format=torch.channels_last)
@@ -78,14 +85,17 @@ class MaskRCNN(nn.Module):
     def spatial_scales(self):
         return backbone_geometry(self.cfg)[1]
 
-    def extract(self, images: torch.Tensor):
+    def extract(self, images: torch.Tensor, train: bool = False):
         """images (B, H, W, 3), uint8 in [0, 255] or float in [0, 1] → list
-        of (B, Hl, Wl, C) levels, fine→coarse."""
+        of (B, Hl, Wl, C) levels in the compute dtype, fine→coarse. ``train``
+        selects the batch statistics of a trainable BatchNorm (and moves its
+        running statistics); frozen BatchNorm ignores it. uint8 divides by
+        255 in float32; the stem casts to the compute dtype."""
         if images.dtype == torch.uint8:
             images = images.float() / 255.0
         x = images.float().permute(0, 3, 1, 2).contiguous(
             memory_format=torch.channels_last)
-        return [p.permute(0, 2, 3, 1) for p in self.extractor(x)]
+        return [p.permute(0, 2, 3, 1) for p in self.extractor(x, train)]
 
     def rpn(self, features):
         """→ (rpn_locs (B, A, 4), rpn_scores (B, A, 2))."""
@@ -120,7 +130,8 @@ class MaskRCNN(nn.Module):
         branch on every slot, mask branch on the (B, :n_pos) prefix →
         (locs, scores, masks). Both branches pool from one shared window
         per ROI (:func:`multilevel_roi_align_train`), whose backward is the
-        region-scatter kernel; the other ROIAlign forms have no train path."""
+        region-scatter kernel, accumulating in ``cfg.model.roi_align_acc``;
+        the other ROIAlign forms have no train path."""
         sb, sm = self.head.roi_size_box, self.head.roi_size_mask
         impl = self.cfg.model.roi_align
         if impl not in ("auto", "region", "fused"):
@@ -129,11 +140,11 @@ class MaskRCNN(nn.Module):
                 "'auto', 'region' or 'fused'")
         pooled_box, pooled_mask = multilevel_roi_align_train(
             features, rois_bn, levels_bn, n_pos, (sb, sb), (sm, sm),
-            self.spatial_scales)
+            self.spatial_scales, acc_dtype=self.acc_dtype)
         locs, scores = self.head.box(pooled_box)
         return locs, scores, self.head.predict_mask(pooled_mask, class_idx)
 
-    def forward(self, images):
-        features = self.extract(images)
+    def forward(self, images, train: bool = False):
+        features = self.extract(images, train)
         rpn_locs, rpn_scores = self.rpn(features)
         return features, rpn_locs, rpn_scores

@@ -2,7 +2,7 @@
 ``maskrcnn_tpu/models/rpn.py``).
 
 One 3×3 conv (+relu) shared across levels, then 1×1 score (2A) and loc (4A)
-convs. Output rows run row-major over each level's grid with the anchor
+convs, computed in ``dtype``; locs and scores return as float32. Output rows run row-major over each level's grid with the anchor
 index innermost, levels concatenated fine→coarse — the order of
 :func:`anchors_for` — so NCHW conv outputs are permuted to NHWC before the
 reshape.
@@ -18,6 +18,7 @@ from torch import nn
 from torch.nn import functional as F
 
 from maskrcnn_tpu_torch.config import Config
+from maskrcnn_tpu_torch.models.layers import Conv2d
 from maskrcnn_tpu_torch.ops.anchors import multilevel_anchors
 from maskrcnn_tpu_torch.ops.boxes import clip_boxes, loc2bbox
 from maskrcnn_tpu_torch.ops.levels import map_rois_to_fpn_levels
@@ -26,20 +27,21 @@ from maskrcnn_tpu_torch.ops.nms import nms_padded
 
 class RPNHead(nn.Module):
     def __init__(self, in_channels: int, mid_channels: int = 256,
-                 n_anchor: int = 3):
+                 n_anchor: int = 3, dtype: torch.dtype = torch.float32):
         super().__init__()
-        self.conv = nn.Conv2d(in_channels, mid_channels, 3, padding=1)
-        self.score = nn.Conv2d(mid_channels, n_anchor * 2, 1)
-        self.loc = nn.Conv2d(mid_channels, n_anchor * 4, 1)
+        kw = dict(compute_dtype=dtype)
+        self.conv = Conv2d(in_channels, mid_channels, 3, padding=1, **kw)
+        self.score = Conv2d(mid_channels, n_anchor * 2, 1, **kw)
+        self.loc = Conv2d(mid_channels, n_anchor * 4, 1, **kw)
 
     def forward(self, features):
-        """NCHW levels → (locs (B, ΣHWA, 4), scores (B, ΣHWA, 2))."""
+        """NCHW levels → (locs (B, ΣHWA, 4), scores (B, ΣHWA, 2)) float32."""
         locs, scores = [], []
         for f in features:
             b = f.shape[0]
             h = F.relu(self.conv(f))
-            locs.append(self.loc(h).permute(0, 2, 3, 1).reshape(b, -1, 4))
-            scores.append(self.score(h).permute(0, 2, 3, 1).reshape(b, -1, 2))
+            locs.append(self.loc(h).float().permute(0, 2, 3, 1).reshape(b, -1, 4))
+            scores.append(self.score(h).float().permute(0, 2, 3, 1).reshape(b, -1, 2))
         return torch.cat(locs, dim=1), torch.cat(scores, dim=1)
 
 

@@ -18,8 +18,12 @@ ROI (:func:`multilevel_roi_align_train`): the forward kernel twice, and as
 the backward one launch of the region-scatter kernel of
 :mod:`maskrcnn_tpu_torch.kernels.region_scatter_cuda`.
 
-Features enter in the JAX layout, one ``(B, H, W, C)`` tensor per level;
-pooled output is ``(R, oh, ow, C)`` float32.
+Features enter in the JAX layout, one ``(B, H, W, C)`` tensor per level,
+float32 or bfloat16; pooled output is ``(R, oh, ow, C)`` float32. With bf16
+features the interpolation weights stay float32, where the JAX package's
+``_kron_pool`` rounds its Kronecker weights to bf16 (about 4e-3 relative):
+the port's forward is the more exact of the two, and the tests' bf16
+tolerances hold that difference.
 """
 
 from __future__ import annotations
@@ -234,10 +238,15 @@ def pair_geometry(shapes, offsets, rois_bn, levels_bn, n_pos: int,
     return row_ids, by_b, bx_b, by_m, bx_m
 
 
-def _d_regions(by, bx, g) -> torch.Tensor:
+def _d_regions(by, bx, g, dtype=torch.float32) -> torch.Tensor:
     """``Byᵀ · g · Bx``: the cotangent of a pooled (R, oh, ow, C) output with
-    respect to its (R, t, tx, C) window, as two batched matrix products."""
+    respect to its (R, t, tx, C) window, as two batched matrix products in
+    ``dtype``. In bf16 (JAX ``_fused_pair_bwd``'s ``cd``) the weights and the
+    cotangent are rounded to bf16, each product accumulates in float32 and
+    rounds to bf16; the intermediate ``Byᵀ·g`` rounds once more, where JAX
+    contracts both weights at once in its Kronecker form."""
     r, oh, ow, c = g.shape
+    by, bx, g = by.to(dtype), bx.to(dtype), g.to(dtype)
     tmp = torch.matmul(by.transpose(1, 2), g.reshape(r, oh, ow * c))
     tmp = tmp.reshape(r, by.shape[2], ow, c)  # (R, t, ow, C)
     return torch.matmul(bx.transpose(1, 2)[:, None], tmp)  # (R, t, tx, C)
@@ -247,44 +256,52 @@ class _RegionPair(torch.autograd.Function):
     """Box and mask pools from one window per ROI. Forward: the ROIAlign
     kernel once per output size; only the geometry is saved, the (R, t, tx,
     C) windows never exist. Backward (JAX ``_fused_pair_bwd``): both
-    cotangent windows as matrix products, the mask's added into the
-    positive prefix in place, then ONE launch of the region-scatter kernel.
-    Only ``flat`` gets a gradient."""
+    cotangent windows as matrix products in the feature dtype, the mask's
+    added into the positive prefix in place (in that dtype), then ONE launch
+    of the region-scatter kernel, accumulating in ``acc_dtype`` (float32
+    unless C is a multiple of 256, as in JAX) and writing the gradient in
+    the feature dtype. Only ``flat`` gets a gradient."""
 
     @staticmethod
-    def forward(ctx, flat, base, stride, by_b, bx_b, by_m, bx_m, b, n, n_pos):
+    def forward(ctx, flat, base, stride, by_b, bx_b, by_m, bx_m, b, n, n_pos,
+                acc_dtype):
         pooled_box = roi_align_fwd(flat, base, stride, by_b, bx_b)
         prefix = [x.reshape(b, n)[:, :n_pos].reshape(b * n_pos).contiguous()
                   for x in (base, stride)]
         pooled_mask = roi_align_fwd(flat, *prefix, by_m, bx_m)
         ctx.save_for_backward(base, stride, by_b, bx_b, by_m, bx_m)
-        ctx.dims = (b, n, n_pos, flat.shape[0], flat.dtype)
+        if flat.shape[1] % 256:
+            acc_dtype = torch.float32
+        ctx.dims = (b, n, n_pos, flat.shape[0], flat.dtype, acc_dtype)
         return pooled_box, pooled_mask
 
     @staticmethod
     def backward(ctx, g_box, g_mask):
         base, stride, by_b, bx_b, by_m, bx_m = ctx.saved_tensors
-        b, n, n_pos, s_rows, dtype = ctx.dims
-        d_reg = _d_regions(by_b, bx_b, g_box.float())
-        d_reg_m = _d_regions(by_m, bx_m, g_mask.float())
+        b, n, n_pos, s_rows, dtype, acc_dtype = ctx.dims
+        d_reg = _d_regions(by_b, bx_b, g_box, dtype)
+        d_reg_m = _d_regions(by_m, bx_m, g_mask, dtype)
         tail = d_reg.shape[1:]
         d_reg.reshape(b, n, *tail)[:, :n_pos] += d_reg_m.reshape(b, n_pos, *tail)
-        d_flat = region_scatter(d_reg, base, stride, s_rows)
-        return (d_flat.to(dtype),) + (None,) * 9
+        d_flat = region_scatter(d_reg, base, stride, s_rows, acc_dtype)
+        return (d_flat,) + (None,) * 10
 
 
 def multilevel_roi_align_train(features, rois_bn, levels_bn, n_pos: int,
                                out_size_box, out_size_mask, spatial_scales,
-                               sampling_ratio: int = 2):
+                               sampling_ratio: int = 2,
+                               acc_dtype: torch.dtype = torch.float32):
     """Box pooling for ALL ``(B·n)`` ROI slots plus mask pooling for the
     ``(B, :n_pos)`` positive prefix, from one shared window per ROI.
 
-    features: per level (B, Hl, Wl, C); rois_bn (B, n, 4) yxyx with
-    positives first; levels_bn (B, n) int32. Returns (pooled_box (B·n, oh,
-    ow, C), pooled_mask (B·n_pos, ohm, owm, C)), float32, differentiable
-    with respect to the features only. On CUDA tensors the forward and the
-    backward are the hand-written kernels; on CPU tensors their plain
-    versions.
+    features: per level (B, Hl, Wl, C), float32 or bfloat16; rois_bn (B, n,
+    4) yxyx with positives first; levels_bn (B, n) int32. Returns
+    (pooled_box (B·n, oh, ow, C), pooled_mask (B·n_pos, ohm, owm, C)),
+    float32, differentiable with respect to the features only; their
+    gradient comes in the features' dtype, summed in ``acc_dtype``
+    (``cfg.model.roi_align_acc``; float32 whenever C is no multiple of 256).
+    On CUDA tensors the forward and the backward are the hand-written
+    kernels; on CPU tensors their plain versions.
     """
     if len(features) != len(spatial_scales):
         raise ValueError("one spatial scale per level")
@@ -296,7 +313,8 @@ def multilevel_roi_align_train(features, rois_bn, levels_bn, n_pos: int,
     base, stride = window_starts(row_ids)
     return _RegionPair.apply(
         flatten_pyramid(features), base, stride, by_b.contiguous(),
-        bx_b.contiguous(), by_m.contiguous(), bx_m.contiguous(), b, n, n_pos)
+        bx_b.contiguous(), by_m.contiguous(), bx_m.contiguous(), b, n, n_pos,
+        acc_dtype)
 
 
 def roi_align_gather(features, rois, roi_batch_idx, roi_levels, out_size,

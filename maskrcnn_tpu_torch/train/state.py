@@ -2,12 +2,15 @@
 ``maskrcnn_tpu/train/state.py``).
 
 MomentumSGD(lr=1e-3, momentum=0.9) with WeightDecay(5e-4) added to the
-gradient before the momentum update, over ALL parameters (frozen-BN
+gradient before the momentum update, over ALL parameters (BN
 ``weight``/``bias`` and conv biases included), and a step-decay schedule:
 optax's ``add_decayed_weights`` then ``sgd(momentum)`` is
 ``torch.optim.SGD(momentum, weight_decay, dampening=0, nesterov=False)``.
-The state carries model, optimizer, step and sampler generator, so a
-checkpoint of it resumes exactly.
+With ``train.momentum_dtype="bfloat16"`` the momentum buffer is stored in
+bf16 (optax's ``accumulator_dtype``), which ``torch.optim.SGD`` cannot do:
+:class:`MomentumSGD` writes that step out. The state carries model,
+optimizer, step and sampler generator, so a checkpoint of it resumes
+exactly.
 """
 
 from __future__ import annotations
@@ -17,6 +20,7 @@ import dataclasses
 import torch
 
 from maskrcnn_tpu_torch.config import Config
+from maskrcnn_tpu_torch.models.layers import compute_dtype
 from maskrcnn_tpu_torch.models.maskrcnn import MaskRCNN
 
 
@@ -31,13 +35,56 @@ def lr_schedule(cfg: Config):
     return schedule
 
 
-def make_optimizer(cfg: Config, model: torch.nn.Module) -> torch.optim.SGD:
-    if cfg.train.momentum_dtype is not None:
-        raise NotImplementedError(
-            "momentum_dtype: the port keeps the momentum buffer in float32")
-    return torch.optim.SGD(
-        model.parameters(), lr=cfg.train.lr, momentum=cfg.train.momentum,
-        weight_decay=cfg.train.weight_decay, dampening=0, nesterov=False)
+class MomentumSGD(torch.optim.Optimizer):
+    """optax ``chain(add_decayed_weights(wd), sgd(lr, momentum,
+    accumulator_dtype=momentum_dtype))``, one ``torch._foreach_*`` pass per
+    group: with ``d = g + wd·p`` and ``t`` the stored buffer,
+
+        new = d + momentum·t     (float32; ``momentum·t`` in the buffer's
+                                  dtype, as JAX multiplies a bf16 array by a
+                                  Python float)
+        p  -= lr · new
+        t   = new, rounded to ``momentum_dtype``
+
+    The parameter moves by the unrounded ``new``; only the buffer is
+    rounded."""
+
+    def __init__(self, params, lr: float, momentum: float, weight_decay: float,
+                 momentum_dtype: torch.dtype):
+        super().__init__(params, dict(lr=lr, momentum=momentum,
+                                      weight_decay=weight_decay, dampening=0,
+                                      nesterov=False))
+        self.momentum_dtype = momentum_dtype
+
+    @torch.no_grad()
+    def step(self):
+        for group in self.param_groups:
+            params = [p for p in group["params"] if p.grad is not None]
+            if not params:
+                continue
+            bufs = [self.state[p].setdefault(
+                "momentum_buffer",
+                torch.zeros_like(p, dtype=self.momentum_dtype,
+                                 memory_format=torch.preserve_format))
+                for p in params]
+            new = torch._foreach_mul(params, group["weight_decay"])
+            torch._foreach_add_(new, [p.grad for p in params])
+            decay = torch.tensor(group["momentum"], dtype=self.momentum_dtype).item()
+            torch._foreach_add_(new, torch._foreach_mul(bufs, decay))
+            torch._foreach_add_(params, torch._foreach_mul(new, -group["lr"]))
+            torch._foreach_copy_(bufs, new)
+
+
+def make_optimizer(cfg: Config, model: torch.nn.Module) -> torch.optim.Optimizer:
+    """``torch.optim.SGD`` with a float32 buffer (``momentum_dtype`` None or
+    "float32"), else :class:`MomentumSGD`."""
+    t = cfg.train
+    dt = torch.float32 if t.momentum_dtype is None else compute_dtype(t.momentum_dtype)
+    if dt == torch.float32:
+        return torch.optim.SGD(
+            model.parameters(), lr=t.lr, momentum=t.momentum,
+            weight_decay=t.weight_decay, dampening=0, nesterov=False)
+    return MomentumSGD(model.parameters(), t.lr, t.momentum, t.weight_decay, dt)
 
 
 @dataclasses.dataclass
@@ -46,7 +93,7 @@ class TrainState:
     updates the model's parameters and the optimizer's buffers in place."""
 
     model: MaskRCNN
-    optimizer: torch.optim.SGD
+    optimizer: torch.optim.Optimizer
     generator: torch.Generator  # the samplers' draws, on the model's device
     step: int = 0
 

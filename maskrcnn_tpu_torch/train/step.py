@@ -7,7 +7,12 @@ Batch size is free. ``grad_accum_steps`` splits the batch into micro-batches
 in a Python loop; the samplers' per-image draws are made for the whole batch
 first and sliced the same way, so accumulation samples exactly what the full
 batch samples and differs only in that each micro-batch's losses divide by
-its own valid counts. Data parallelism and chained dispatch are not here.
+its own valid counts. The backbone runs in training mode: with
+``model.freeze_bn=False`` its BatchNorms normalise by batch statistics and
+move their running statistics in place, once per micro-batch, so the
+statistics chain from one micro-batch to the next as JAX's scan carries
+them. Losses are float32 whatever ``model.dtype``. Data parallelism and
+chained dispatch are not here.
 """
 
 from __future__ import annotations
@@ -63,8 +68,8 @@ def make_train_step(cfg: Config, image_size: tuple[int, int] | None = None):
     tensors, plus ``n_valid_rois`` and ``n_pos_rois``, the sampled ROI slots
     that carry loss. Nothing in it waits for the device. ``draws`` replaces
     the generator's (tests feed another framework's); it runs with
-    gradients on whatever the model's ``train()``/``eval()`` mode, which
-    frozen BatchNorm ignores.
+    gradients and the backbone's ``train`` flag set, whatever the model's
+    ``train()``/``eval()`` mode, which the port's modules do not read.
     """
     feat_strides, _ = backbone_geometry(cfg)
     feat_shapes = pyramid_shapes(cfg, image_size or cfg.train.image_size)
@@ -79,7 +84,7 @@ def make_train_step(cfg: Config, image_size: tuple[int, int] | None = None):
     anchors_on = {}
 
     def loss_fn(model: MaskRCNN, batch: Batch, draws: SamplerDraws, anchors):
-        features, rpn_locs, rpn_scores = model(batch.images)
+        features, rpn_locs, rpn_scores = model(batch.images, train=True)
         with torch.no_grad():
             props = generate_proposals(
                 rpn_locs.detach(), rpn_scores.detach(), anchors, batch.scale,

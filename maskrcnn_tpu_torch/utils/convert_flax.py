@@ -14,7 +14,9 @@ arrays. Module names carry over with ``Conv_k`` → ``conv{k}`` and
 - BatchNorm scale/bias/mean/var → weight/bias/running_mean/running_var.
 
 A JAX leaf with no place in the port, a port tensor with no JAX leaf, or a
-shape mismatch raises.
+shape mismatch raises. :func:`export_flax_variables` is the inverse, so the
+running statistics a trainable BatchNorm moves (``batch_stats``) and the
+parameters go back into a flax tree and compare leaf by leaf.
 """
 
 from __future__ import annotations
@@ -62,6 +64,30 @@ def _convert(path: tuple[str, ...], x: np.ndarray) -> np.ndarray:
     raise ValueError(f"{'/'.join(path)}: unexpected kernel rank {x.ndim}")
 
 
+def _unconvert(path: tuple[str, ...], x: np.ndarray) -> np.ndarray:
+    """The inverse of :func:`_convert`."""
+    leaf = path[-1]
+    if leaf == "conv2_kernel":
+        return x.T
+    if leaf != "kernel":
+        return x
+    if x.ndim == 4 and path[-2] == "deconv1":
+        return x.transpose(2, 3, 0, 1)[::-1, ::-1]
+    if x.ndim == 4:
+        return x.transpose(2, 3, 1, 0)
+    return x.T
+
+
+def _nest(pairs) -> dict:
+    tree = {}
+    for path, x in pairs:
+        node = tree
+        for name in path[:-1]:
+            node = node.setdefault(name, {})
+        node[path[-1]] = x
+    return tree
+
+
 def convert_flax_variables(variables, model: torch.nn.Module) -> dict:
     """flax ``variables`` → a complete ``state_dict`` for ``model``."""
     target = model.state_dict()
@@ -88,3 +114,15 @@ def load_flax_variables(model: torch.nn.Module, variables) -> torch.nn.Module:
     sd = convert_flax_variables(variables, model)
     model.load_state_dict(sd, strict=True)
     return model
+
+
+def export_flax_variables(model: torch.nn.Module, like) -> dict:
+    """``model``'s parameters and running statistics as a flax ``variables``
+    tree with the paths of ``like`` (a tree of the same model, e.g. the one
+    it was loaded from), float32 numpy leaves that own their memory."""
+    sd = model.state_dict()
+    return _nest(
+        (path, np.array(_unconvert(
+            path, sd[_torch_key(path)].detach().float().cpu().numpy()),
+            order="C"))
+        for path, _ in _flatten(like))

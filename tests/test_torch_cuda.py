@@ -14,9 +14,14 @@ import pytest
 torch = pytest.importorskip("torch")
 
 from maskrcnn_tpu_torch import config as cfg_lib  # noqa: E402
-from maskrcnn_tpu_torch.data.synthetic import SyntheticDetectionData  # noqa: E402
+from maskrcnn_tpu_torch.data.synthetic import (  # noqa: E402
+    SyntheticDetectionData,
+    SyntheticRequests,
+)
+from maskrcnn_tpu_torch.eval.predict import make_predict_fn  # noqa: E402
 from maskrcnn_tpu_torch.kernels.region_scatter_cuda import (  # noqa: E402
     region_scatter,
+    region_scatter_exact,
     region_scatter_plain,
 )
 from maskrcnn_tpu_torch.kernels.roi_align_cuda import (  # noqa: E402
@@ -152,25 +157,65 @@ def _scatter_case(dev, s_rows, c, r, t, tx, seed=0, overlap=False):
     return d_regs, base, stride
 
 
+F32, BF16 = torch.float32, torch.bfloat16
+SCATTER_PAIRS = [(F32, F32), (BF16, F32), (BF16, BF16), (F32, BF16)]
+
+
+@pytest.mark.parametrize("dtype,acc", SCATTER_PAIRS)
 @pytest.mark.parametrize("r,t,tx,c,overlap", [
     (512, 20, 32, 256, False), (300, 20, 32, 256, True), (7, 3, 5, 8, False),
     (64, 20, 20, 64, True), (1, 1, 1, 4, False)])
-def test_region_scatter_matches_plain(cuda, r, t, tx, c, overlap):
+def test_region_scatter_matches_plain(cuda, r, t, tx, c, overlap, dtype, acc):
     """Windows past both ends of the buffer (dropped) and, with ``overlap``,
-    hundreds of windows on the same rows. The atomics add in an order that
-    varies from run to run: 1e-5 of max|plain| bounds float32 rounding of
-    sums of up to a few hundred terms."""
+    hundreds of windows on the same rows, in every (input, accumulator)
+    dtype pair; the result has the input's dtype. C = 4 is one float4 per
+    window column in the float32 kernel; the other pairs move 16-byte
+    vectors of 8 and take C = 8 there.
+
+    The atomics add in an order that varies from run to run. Kernel and
+    plain version must both lie, element by element, within
+    ``region_scatter_exact``'s rounding bound of the float64 sum; with a
+    bf16 accumulator, whose bound grows with the square of the windows that
+    meet, the kernel's mean error must also stay within twice the plain
+    version's (the same rounded adds in another order). In float32 the
+    kernel also stays within 1e-5 of max|plain|."""
+    if (dtype, acc) != (F32, F32):
+        c = max(c, 8)
     s_rows = 3000
     d_regs, base, stride = _scatter_case(cuda, s_rows, c, r, t, tx, overlap=overlap)
+    d_regs = d_regs.to(dtype)
     before = region_scatter.launches
-    got = region_scatter(d_regs, base, stride, s_rows)
+    got = region_scatter(d_regs, base, stride, s_rows, acc)
     assert region_scatter.launches == before + 1
-    want = region_scatter_plain(d_regs, base, stride, s_rows)
+    want = region_scatter_plain(d_regs, base, stride, s_rows, acc)
     torch.cuda.synchronize()
-    assert got.shape == (s_rows, c) and got.dtype == torch.float32
+    assert got.shape == (s_rows, c) and got.dtype == dtype
     assert got.is_contiguous()
-    assert float((got - want).abs().max()) <= 1e-5 * float(want.abs().max())
+    exact, bound = region_scatter_exact(d_regs, base, stride, s_rows, acc)
+    err, plain_err = (got.double() - exact).abs(), (want.double() - exact).abs()
+    assert bool((plain_err <= bound).all())
+    assert bool((err <= bound).all()), float((err - bound).max())
+    if acc == BF16:
+        assert float(err.mean()) <= 2 * float(plain_err.mean())
+    if dtype == acc == F32:
+        assert float((got - want).abs().max()) <= 1e-5 * float(want.abs().max())
     assert bool((base + (t - 1) * stride + tx > s_rows).any()) or r < 8
+
+
+@pytest.mark.parametrize("dtype,acc", SCATTER_PAIRS)
+def test_region_scatter_sums_exactly_what_every_dtype_holds(cuda, dtype, acc):
+    """Small integers add exactly in every dtype, whatever the order: the
+    kernel and its plain version agree bit for bit, and so do a window that
+    rounds into bf16 and its float32 sum."""
+    s_rows, r, t, tx, c = 2000, 12, 20, 32, 256
+    d_regs, base, stride = _scatter_case(cuda, s_rows, c, r, t, tx, overlap=True)
+    d_regs = d_regs.round().clamp(-1, 1).to(dtype)  # |partial sums| ≤ 12·20
+    got = region_scatter(d_regs, base, stride, s_rows, acc)
+    want = region_scatter_plain(d_regs, base, stride, s_rows, acc)
+    exact = region_scatter_plain(d_regs.double(), base, stride, s_rows, torch.float64)
+    assert float(exact.abs().max()) <= 256
+    assert torch.equal(got, want)
+    assert torch.equal(got.double(), exact)
 
 
 def test_region_scatter_drops_rows_outside_the_buffer(cuda):
@@ -192,10 +237,64 @@ def test_region_scatter_rejects_what_it_cannot_take(cuda):
         region_scatter(d_regs.transpose(1, 2), base, stride, 100)
     with pytest.raises(ValueError, match="int32"):
         region_scatter(d_regs, base.long(), stride, 100)
-    with pytest.raises(ValueError, match="float32"):
-        region_scatter(d_regs.bfloat16(), base, stride, 100)
+    with pytest.raises(ValueError, match="float32 or bfloat16"):
+        region_scatter(d_regs.half(), base, stride, 100)
+    with pytest.raises(ValueError, match="float32 or bfloat16"):
+        region_scatter(d_regs, base, stride, 100, torch.float16)
+    with pytest.raises(ValueError, match="multiple of 8"):  # 16-byte bf16 vectors
+        region_scatter(d_regs[..., :4].contiguous().bfloat16(), base, stride, 100)
     empty = region_scatter(d_regs[:0], base[:0], stride[:0], 100)
     assert empty.shape == (100, 8) and float(empty.abs().max()) == 0.0
+    empty = region_scatter(d_regs[:0].bfloat16(), base[:0], stride[:0], 100)
+    assert empty.dtype == torch.bfloat16 and float(empty.abs().max()) == 0.0
+
+
+def _bf16_cfg(**model):
+    return cfg_lib._rep(
+        cfg_lib.fpn_mask(), model=dict(n_fg_class=3, dtype="bfloat16", **model),
+        proposals=dict(n_train_pre_nms=256, n_train_post_nms=64,
+                       n_test_pre_nms=256, n_test_post_nms=32),
+        sampler=dict(n_sample=32), eval=dict(max_detections=16),
+        train=dict(batch_size=2, image_size=(256, 320),
+                   momentum_dtype="bfloat16"))
+
+
+def test_bf16_predict_runs_through_the_kernel(cuda):
+    """bf16 two-pass predict on the card: both pools read bf16 features
+    (2 launches), detections come out float32 and finite."""
+    cfg = _bf16_cfg()
+    model = MaskRCNN(cfg, device="cuda", seed=0)
+    req = SyntheticRequests(cfg).batch(0)
+    before = roi_align_fwd.launches
+    det = make_predict_fn(cfg, model)(req.images, req.img_hw, req.scale)
+    torch.cuda.synchronize()
+    assert roi_align_fwd.launches == before + 2
+    assert det.boxes.dtype == det.scores.dtype == det.masks.dtype == torch.float32
+    for x in (det.boxes, det.scores, det.masks):
+        assert bool(torch.isfinite(x).all())
+
+
+@pytest.mark.parametrize("acc", ["float32", "bfloat16"])
+def test_bf16_trainable_bn_step_runs_through_the_kernels(cuda, acc):
+    """bf16 train steps with trainable BN, a bf16 momentum buffer and both
+    accumulators: 2 forward launches and 1 region scatter a step, finite
+    losses, every parameter and every running statistic moved."""
+    cfg = _bf16_cfg(freeze_bn=False, roi_align_acc=acc)
+    state = create_train_state(cfg, MaskRCNN(cfg, device="cuda", seed=0))
+    before = {k: v.clone() for k, v in state.model.state_dict().items()}
+    step = make_train_step(cfg)
+    launches = roi_align_fwd.launches, region_scatter.launches
+    for i in range(2):
+        m = step(state, SyntheticDetectionData(cfg).batch(i))
+        assert all(bool(torch.isfinite(v)) for v in m.values())
+        assert m["loss"].dtype == torch.float32
+    assert (roi_align_fwd.launches - launches[0],
+            region_scatter.launches - launches[1]) == (4, 2)
+    after = state.model.state_dict()
+    still = [k for k in after if torch.equal(after[k], before[k])]
+    assert still == []
+    buf = state.optimizer.state[state.model.head.box.score.weight]["momentum_buffer"]
+    assert buf.dtype == torch.bfloat16
 
 
 def test_train_step_launches_the_kernels(cuda):

@@ -26,6 +26,7 @@ from maskrcnn_tpu.ops.roi_align import (  # noqa: E402
 )
 from maskrcnn_tpu_torch.kernels.region_scatter_cuda import (  # noqa: E402
     region_scatter,
+    region_scatter_exact,
     region_scatter_plain,
     scatter_rows,
 )
@@ -99,6 +100,133 @@ def test_plain_scatter_drops_rows_out_of_range():
     assert rows.tolist() == [[[4, 4, 0, 1], [1, 2, 3, 4]]]  # 4 is the sink
 
 
+def _bf16_case(rng, R=40, t=5, txn=32, S2=4096, integers=False):
+    """The TPU kernel's inputs in bf16 with 16-row alignment (its bf16
+    accumulator moves rows in 16-row chunks)."""
+    d = rng.randn(R, t * txn, 128)
+    if integers:
+        d = np.clip(np.round(d), -1, 1)
+    # bf16 values, held in float32 arrays
+    d = np.array(jnp.asarray(d.astype(np.float32)).astype(jnp.bfloat16)
+                 .astype(jnp.float32))
+    stride = rng.choice([16, 32, 64], R).astype(np.int32)
+    base = (rng.randint(0, (S2 - 16) // 16, R) * 16).astype(np.int32)
+    return d, base, stride, (t - 1) * 64 + txn
+
+
+def _tpu_scatter(d, base, stride, S2, t, txn, halo, acc):
+    return np.asarray(scatter_add_regions(
+        jnp.asarray(d).astype(jnp.bfloat16), jnp.asarray(base),
+        jnp.asarray(stride), s2_rows=S2, t=t, txn=txn, halo=halo,
+        out_dtype=jnp.bfloat16, acc_dtype=acc,
+        interpret=True).astype(jnp.float32))
+
+
+@pytest.mark.parametrize("acc", ["float32", "bfloat16"])
+@pytest.mark.parametrize("n_half", [1, 2])
+def test_plain_scatter_bf16_matches_tpu_kernel(acc, n_half):
+    """bf16 cotangents to a bf16 gradient, summed in float32 or bf16, as
+    ``scatter_add_regions(..., out_dtype=bfloat16, acc_dtype=...)``.
+    Integer values add exactly in either accumulator, whatever the order:
+    bit for bit. Random values: a float32 sum differs only by where the
+    final bf16 rounding falls (one bf16 step, 2^-8 of the value); a bf16
+    accumulator rounds every partial sum, and the two add the ROIs in
+    another order (TPU: sorted by base), so an element that sums k terms
+    can move by k/2 steps of its partial sums: 2^-8·k/2 of max|exact|, with
+    k the most windows that meet on a row, and the mean error under a tenth
+    of that."""
+    rng = np.random.RandomState(1)
+    t, txn, S2 = 5, 32, 4096
+    tdt = {"float32": torch.float32, "bfloat16": torch.bfloat16}[acc]
+    for integers in (True, False):
+        d, base, stride, halo = _bf16_case(rng, t=t, txn=txn, S2=S2,
+                                           integers=integers)
+        want = _tpu_scatter(d, base, stride, S2, t, txn, halo, acc)
+        regs, b, st = _port_layout(d, base, stride, t, txn, n_half)
+        got = region_scatter_plain(regs.to(torch.bfloat16), b, st,
+                                   S2 // n_half, tdt)
+        assert got.dtype == torch.bfloat16
+        got = got.float().numpy().reshape(S2, 128)
+        exact = region_scatter_plain(regs.double(), b, st, S2 // n_half,
+                                     torch.float64).numpy().reshape(S2, 128)
+        if integers:
+            np.testing.assert_array_equal(got, want)
+            np.testing.assert_array_equal(got, exact)
+            continue
+        scale = float(np.abs(exact).max())
+        step = 2.0 ** -8 * scale
+        meet = float(region_scatter_plain(torch.ones_like(regs), b, st,
+                                          S2 // n_half).max())
+        assert meet >= 3
+        k = 1 if acc == "float32" else meet / 2
+        _, bound = region_scatter_exact(regs.to(torch.bfloat16), b, st,
+                                        S2 // n_half, tdt)
+        bound = bound.numpy().reshape(S2, 128)
+        for out in (got, want):
+            err = np.abs(out - exact)
+            assert float(err.max()) <= k * step, (acc, float(err.max()), step)
+            assert float(err.mean()) <= 0.1 * k * step
+            assert (err <= bound).all()  # and element by element
+
+
+def test_plain_bf16_accumulator_rounds_every_add():
+    """A bf16 accumulator rounds after each add, in ROI order: 256 plus
+    sixteen ones stays 256 (one is half a bf16 step there), where a float32
+    accumulator gives 272; on random overlapping windows the plain version
+    equals a Python loop over the window elements bit for bit."""
+    ones = torch.ones(17, 1, 1, 8, dtype=torch.bfloat16)
+    ones[0] = 256
+    zero = torch.zeros(17, dtype=torch.int32)
+    assert region_scatter_plain(ones, zero, zero, 2, torch.bfloat16)[0, 0] == 256
+    assert region_scatter_plain(ones, zero, zero, 2, torch.float32)[0, 0] == 272
+
+    g = torch.Generator().manual_seed(0)
+    d_regs = torch.randn(30, 3, 4, 8, generator=g).bfloat16()
+    base = torch.randint(-3, 10, (30,), generator=g, dtype=torch.int32)
+    stride = torch.randint(0, 5, (30,), generator=g, dtype=torch.int32)
+    rows = scatter_rows(base, stride, 3, 4, 20).reshape(-1)
+    want = torch.zeros(21, 8, dtype=torch.bfloat16)
+    for row, term in zip(rows.tolist(), d_regs.reshape(-1, 8)):
+        want[row] = (want[row].float() + term.float()).bfloat16()
+    got = region_scatter_plain(d_regs, base, stride, 20, torch.bfloat16)
+    assert torch.equal(got, want[:20])
+
+
+@pytest.mark.parametrize("dtype,acc", [
+    ("float32", "float32"), ("bfloat16", "float32"), ("bfloat16", "bfloat16"),
+    ("float32", "bfloat16")])
+def test_exact_bound_holds_for_the_plain_version_and_catches_wrong_sums(dtype, acc):
+    """``region_scatter_exact``'s per-element bound, the criterion the card
+    holds the kernel to: the plain version (one rounded add after another
+    in ``acc``) lies within it; an output that drops one window, moves one
+    window a row down or is all zero does not."""
+    dtype, acc = getattr(torch, dtype), getattr(torch, acc)
+    g = torch.Generator().manual_seed(0)
+    r, t, tx, c, s_rows = 60, 4, 8, 16, 300
+    d_regs = torch.randn(r, t, tx, c, generator=g)
+    d_regs[:, :, tx // 2:] = 0  # zero vectors, as outside a ROI's extent
+    d_regs = d_regs.to(dtype)
+    base = torch.randint(-5, 200, (r,), generator=g, dtype=torch.int32)
+    base[:20] = torch.randint(0, 8, (20,), generator=g, dtype=torch.int32)
+    stride = torch.randint(0, 24, (r,), generator=g, dtype=torch.int32)
+    exact, bound = region_scatter_exact(d_regs, base, stride, s_rows, acc)
+    assert exact.dtype == bound.dtype == torch.float64
+    assert float(bound.max()) > 0  # where windows meet, the adds round
+
+    def within(out):
+        return bool(((out.double() - exact).abs() <= bound).all())
+
+    plain = region_scatter_plain(d_regs, base, stride, s_rows, acc)
+    assert within(plain)
+    dropped = d_regs.clone()
+    dropped[30] = 0
+    assert not within(region_scatter_plain(dropped, base, stride, s_rows, acc))
+    moved = base.clone()
+    moved[30] += 1
+    assert not within(region_scatter_plain(d_regs, moved, stride, s_rows, acc))
+    assert not within(torch.zeros_like(plain))
+
+
 def test_wrapper_takes_the_plain_version_only_on_the_cpu():
     d_regs = torch.randn(3, 2, 4, 8)
     base = torch.tensor([0, 5, 9], dtype=torch.int32)
@@ -167,6 +295,50 @@ def test_train_pair_values_and_gradients_match_jax(bwd):
     for g, jg in zip(grads, jgrads):
         assert float(np.abs(jg).max()) > 0
         np.testing.assert_allclose(g, jg, rtol=1e-3, atol=1e-4)
+
+
+@pytest.mark.parametrize("acc", ["float32", "bfloat16"])
+def test_train_pair_bf16_matches_jax(acc):
+    """bf16 features through the shared pool and back, against JAX's fused
+    pair (``bwd_scatter="pallas"``, ``acc_dtype``) on the same bf16 values.
+    The gradient comes back in bf16. JAX rounds its Kronecker weights to
+    bf16 in the forward (the port keeps them float32) and contracts
+    ``Byᵀ·g·Bx`` in one product where the port rounds after ``Byᵀ·g``:
+    pooled values within 1e-2 of max|JAX|, gradients within 3e-2 of their
+    max and 3e-3 on average (a bf16 step is 2^-8 = 3.9e-3)."""
+    feats, rois, levels, n_pos, scales = _pair_case(
+        np.random.RandomState(0), [(32, 40), (16, 24), (8, 16)],
+        (0.25, 0.125, 0.0625))
+    feats = [np.array(jnp.asarray(f).astype(jnp.bfloat16).astype(jnp.float32))
+             for f in feats]
+
+    def f(fs):
+        pb, pm = jax_roi_align_train(
+            [x.astype(jnp.bfloat16) for x in fs], jnp.asarray(rois),
+            jnp.asarray(levels), n_pos, (7, 7), (14, 14), scales,
+            bwd_scatter="pallas", acc_dtype=acc)
+        return _objective(pb, pm, jnp.cos), (pb, pm)
+
+    (_, (jpb, jpm)), jgrads = jax.value_and_grad(f, has_aux=True)(
+        [jnp.asarray(x) for x in feats])
+    fs = [torch.from_numpy(x).bfloat16().requires_grad_() for x in feats]
+    pb, pm = tra.multilevel_roi_align_train(
+        fs, torch.from_numpy(rois), torch.from_numpy(levels), n_pos, (7, 7),
+        (14, 14), scales, acc_dtype=getattr(torch, acc))
+    assert pb.dtype == pm.dtype == torch.float32
+    _objective(pb, pm, torch.cos).backward()
+    for got, want in ((pb, jpb), (pm, jpm)):
+        want = np.asarray(want)
+        err = float(np.abs(got.detach().numpy() - want).max())
+        assert err <= 1e-2 * float(np.abs(want).max()), err
+    for x, jg in zip(fs, jgrads):
+        assert x.grad.dtype == torch.bfloat16
+        jg = np.asarray(jg)
+        scale = float(np.abs(jg).max())
+        assert scale > 0
+        err = np.abs(x.grad.float().numpy() - jg)
+        assert float(err.max()) <= 3e-2 * scale, (float(err.max()), scale)
+        assert float(err.mean()) <= 3e-3 * scale
 
 
 def test_train_pair_unfolded_geometry_matches_jax():

@@ -37,9 +37,10 @@ from maskrcnn_tpu.train import (  # noqa: E402
 )
 from maskrcnn_tpu_torch import config as tcfg  # noqa: E402
 from maskrcnn_tpu_torch.data.synthetic import SyntheticDetectionData  # noqa: E402
-from maskrcnn_tpu_torch.models.backbones.resnet import FrozenBatchNorm2d  # noqa: E402
+from maskrcnn_tpu_torch.models.backbones.resnet import Norm  # noqa: E402
 from maskrcnn_tpu_torch.models.maskrcnn import MaskRCNN  # noqa: E402
 from maskrcnn_tpu_torch.train.state import (  # noqa: E402
+    MomentumSGD,
     create_train_state,
     lr_schedule,
     make_optimizer,
@@ -178,16 +179,19 @@ def test_batch_equals_jax_bit_for_bit(run):
 
 
 def test_frozen_bn_affine_is_parameters_with_the_same_state_dict_keys():
-    bn = FrozenBatchNorm2d(4)
+    bn = Norm(4)  # frozen unless asked
+    assert bn.frozen
     assert sorted(n for n, _ in bn.named_parameters()) == ["bias", "weight"]
     assert sorted(n for n, _ in bn.named_buffers()) == ["running_mean", "running_var"]
     assert sorted(bn.state_dict()) == ["bias", "running_mean", "running_var", "weight"]
-    # the same in train() and eval(): statistics stay frozen
+    # the same in training and not: statistics stay frozen and unmoved
     x = torch.randn(2, 4, 3, 3)
     with torch.no_grad():
         bn.running_mean.normal_()
         bn.weight.normal_()
-    assert torch.equal(bn.train()(x), bn.eval()(x))
+    stats = bn.running_mean.clone()
+    assert torch.equal(bn(x, train=True), bn(x, train=False))
+    assert torch.equal(bn.running_mean, stats)
 
 
 @pytest.mark.parametrize("i", [0, 1])
@@ -259,8 +263,14 @@ def test_lr_schedule_and_optimizer_settings():
     assert (group["momentum"], group["weight_decay"], group["dampening"],
             group["nesterov"]) == (0.9, 5e-4, 0, False)
     assert len(group["params"]) == 2  # biases decay too
-    with pytest.raises(NotImplementedError, match="momentum_dtype"):
-        make_optimizer(_cfg(tcfg, train=dict(momentum_dtype="bfloat16")), model)
+    assert isinstance(opt, torch.optim.SGD)
+    # a bf16 buffer is the port's own step, with the same settings
+    opt16 = make_optimizer(_cfg(tcfg, train=dict(momentum_dtype="bfloat16")), model)
+    assert isinstance(opt16, MomentumSGD) and opt16.momentum_dtype == torch.bfloat16
+    assert {k: opt16.param_groups[0][k] for k in ("momentum", "weight_decay")} == {
+        "momentum": 0.9, "weight_decay": 5e-4}
+    with pytest.raises(ValueError, match="float16"):
+        make_optimizer(_cfg(tcfg, train=dict(momentum_dtype="float16")), model)
 
 
 def _one_update(run, draws=None, seed=None, **sections):
