@@ -48,14 +48,25 @@ Phases, in order; any failure exits non-zero before the result is printed:
    samples the same ROIs) in bf16 on the card, in bf16 on the CPU and in
    float32 on the CPU; the card's distance from the CPU's float32 must stay
    within twice the CPU bf16's own distance from it, plus a floor;
-10. the kernels line: each kernel on the inputs the main paths gave it,
+10. the evaluation path: request 0's masks pasted (``paste_masks``) on the
+   card and on the CPU at 800×1024, pixel for pixel; then
+   ``evaluate_dataset`` (VOC and COCO mask AP) over 4 synthetic 800×1024
+   batches with the serving model, launch counts read around it (2 forward
+   launches a batch), seconds per image with the scorers' share;
+11. the CLIs, in this process and a temporary directory: ``cli.train`` at
+   256×320 b2 (80 classes), 4 steps, snapshots at 2 and 4, an evaluation at
+   4; the same run resumed from step 2 (losses of steps 3 and 4 within 1e-3
+   relative); ``cli.evaluate`` on the step-4 checkpoint (the in-run report
+   and detections within 1e-6); launch counts around each;
+12. the kernels line: each kernel on the inputs the main paths gave it,
    held against its plain version, with both times, its bound (for the
    ROIAlign forward the work these inputs need, with the dense count beside
    it) and, where one PyTorch call computes the same function, that call's
    time; the region scatter's bookkeeping (the sort of its window rows) is
    timed alone beside it, the matrix products that build its input too, and
    ``torch.profiler`` lists the device kernels of one region-scatter call in
-   each dtype pair with their device times. With ``--against``, the
+   each dtype pair with their device times. The launches of phases 10 and
+   11 are counted in (``launches_by_path``). With ``--against``, the
    ROIAlign forward source of another checkout (same C interface) is built too and timed on the same
    inputs in the order other, this, this, other.
 
@@ -66,11 +77,14 @@ the kernels JSON line and ``{"ok": true, "device": {...}}``.
 from __future__ import annotations
 
 import argparse
+import importlib.metadata
 import importlib.util
 import json
+import shutil
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
@@ -87,10 +101,14 @@ from maskrcnn_tpu_torch.bench import (
     time_train_steps,
 )
 from maskrcnn_tpu_torch import config as cfg_lib
+from maskrcnn_tpu_torch.cli import evaluate as evaluate_cli
+from maskrcnn_tpu_torch.cli import train as train_cli
 from maskrcnn_tpu_torch.data.synthetic import (
     SyntheticDetectionData,
     SyntheticRequests,
 )
+from maskrcnn_tpu_torch.eval import evaluator
+from maskrcnn_tpu_torch.eval.postprocess import paste_masks
 from maskrcnn_tpu_torch.eval.predict import make_predict_fn
 from maskrcnn_tpu_torch.kernels import region_scatter_cuda, roi_align_cuda
 from maskrcnn_tpu_torch.kernels.build import nvcc_path
@@ -125,6 +143,13 @@ SCATTER_BUSY = 8 * BUSY_CYCLES  # the region scatter's wrapper also sorts and
 #   allocates: up to ~400 µs of host time a call stays hidden
 N_REQUESTS = 8  # served through the predict path, after one warm-up request
 N_TRAIN_STEPS = 3  # taken through the train path, after one warm-up step
+N_EVAL_BATCHES = 4  # evaluated at 800x1024 b1 through evaluate_dataset
+FLIP_BAND = 1e-5  # a pasted pixel that differs between card and CPU lies
+#   within this of 0.5 on the CPU ...
+FLIP_SHARE = 1e-5  # ... and at most this share of pasted pixels differs
+CLI_LOSS_TOL = 1e-3  # resumed CLI run vs uninterrupted, each loss, relative
+#   (cuDNN's backward need not repeat bit for bit; B1 and B2 do)
+CLI_REPORT_TOL = 1e-6  # cli.evaluate vs the in-run report, each field
 BF16_SETTINGS = dict(dtype="bfloat16")  # phases 7 and 9's serving
 BF16_TRAIN_SETTINGS = dict(dtype="bfloat16", freeze_bn=False)  # 8 and 9
 
@@ -333,10 +358,16 @@ def phase_device():
     nvcc = subprocess.run([nvcc_path(), "--version"],
                           capture_output=True, text=True).stdout.strip()
     present = {m: importlib.util.find_spec(m) is not None
-               for m in ("triton", "ninja", "torchvision")}
+               for m in ("triton", "ninja", "torchvision", "cv2", "PIL")}
+    # the distributions behind the image modules, found without importing
+    # them (a COCO loader would decode with them)
+    dists = importlib.metadata.packages_distributions()
+    versions = {m: [f"{d} {importlib.metadata.version(d)}" for d in dists.get(m, [])]
+                for m in ("cv2", "PIL") if present[m]}
     print(f"[device] nvidia-smi: {card_name_and_power_limit()}")
     print(f"[device] nvcc: {nvcc.splitlines()[-1] if nvcc else 'absent'}; "
-          f"python modules present: {present}")
+          f"python modules present: {present}; image modules' "
+          f"distributions: {versions}")
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     print("[device] TF32 off for matmul and cuDNN: float32 throughout")
@@ -786,6 +817,183 @@ def phase_bf16_gpu_vs_cpu(seed: int):
     print(f"[bf16-vs-cpu] done in {time.perf_counter() - t0:.1f} s")
 
 
+def paste_card_vs_cpu(det, hw):
+    """Paste request 0's detections on the card and on the CPU: the count of
+    differing pixels, each within ``FLIP_BAND`` of 0.5 on the CPU (it lies
+    between the CPU's pastes at 0.5 ∓ the band), at most ``FLIP_SHARE`` of
+    the pasted pixels."""
+    boxes, masks, valid = det.boxes[0], det.masks[0], det.valid[0]
+    t0 = time.perf_counter()
+    got = paste_masks(boxes, masks, valid, hw)
+    torch.cuda.synchronize()
+    card_s = time.perf_counter() - t0
+    cpu = [t.cpu() for t in (boxes, masks, valid)]
+    t0 = time.perf_counter()
+    want = paste_masks(*cpu, hw)
+    cpu_s = time.perf_counter() - t0
+    lo, hi = (paste_masks(*cpu, hw, threshold=0.5 + s * FLIP_BAND) for s in (-1, 1))
+    diff = got.cpu() != want
+    n_diff, pasted = int(diff.sum()), want.numel()
+    print(f"[eval] paste_masks of request 0's {int(valid.sum())} detections at "
+          f"{hw[0]}x{hw[1]}: {n_diff} of {pasted} pixels differ between card and "
+          f"CPU ({int(want.sum())} set); card {card_s * 1e3:.1f} ms, CPU "
+          f"{cpu_s * 1e3:.1f} ms")
+    if not bool((~diff | (lo & ~hi)).all()):
+        fail("a pasted pixel differs between card and CPU away from 0.5")
+    if n_diff > FLIP_SHARE * pasted:
+        fail(f"{n_diff} pasted pixels differ between card and CPU")
+
+
+class Timed:
+    """Calls ``fn`` and sums the wall time of its calls."""
+
+    def __init__(self, fn):
+        self.fn, self.seconds = fn, 0.0
+
+    def __call__(self, *args, **kwargs):
+        t0 = time.perf_counter()
+        try:
+            return self.fn(*args, **kwargs)
+        finally:
+            self.seconds += time.perf_counter() - t0
+
+
+def phase_eval(n_batches: int, seed: int):
+    """The evaluation path: ``fpn_mask`` at 800×1024 b1 (spread class
+    scores) predicts request 0 and pastes its masks on the card and on the
+    CPU, then ``evaluate_dataset`` scores ``n_batches`` synthetic batches
+    (launch counters around it: 2 ROIAlign forward launches a batch)."""
+    cfg = predict_config("fpn_mask", 1, 800, 1024)
+    model = spread_class_scores(MaskRCNN(cfg, seed=seed))
+    data = SyntheticDetectionData(cfg, seed=seed)
+    batch = data.batch(0)
+    det = make_predict_fn(cfg, model)(batch.images, batch.img_hw, batch.scale)
+    paste_card_vs_cpu(det, (800, 1024))
+
+    scorers = {name: Timed(getattr(evaluator, name)) for name in
+               ("eval_instance_segmentation_voc", "evaluate_coco")}
+    for name, timed in scorers.items():
+        setattr(evaluator, name, timed)
+    try:
+        torch.cuda.synchronize()
+        reset_launches()
+        t0 = time.perf_counter()
+        report = evaluator.evaluate_dataset(cfg, model, iter(data), n_batches)
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        launches = read_launches()
+    finally:
+        for name, timed in scorers.items():
+            setattr(evaluator, name, timed.fn)
+    print(f"[eval] launches over {n_batches} batches: {launches}")
+    if launches != {"roi_align_fwd": 2 * n_batches, "region_scatter": 0}:
+        fail(f"expected 2 forward launches per evaluated batch, got {launches}")
+    if not all(np.isfinite(v) and 0.0 <= v <= 1.0 for v in report.values()):
+        fail(f"eval report out of [0, 1]: {report}")
+    scoring = sum(t.seconds for t in scorers.values())
+    print(f"[eval] report over {n_batches} images: " + ", ".join(
+        f"{k} {v:.4f}" for k, v in report.items() if not k.startswith("ap/")))
+    print(f"[eval] {secs:.3f} s for {n_batches} images: {secs / n_batches:.3f} s "
+          f"an image, of which the numpy scorers {scoring / n_batches:.3f} s "
+          f"(VOC {scorers['eval_instance_segmentation_voc'].seconds:.3f} s, "
+          f"COCO {scorers['evaluate_coco'].seconds:.3f} s in all); "
+          f"{card_name_and_power_limit()}")
+    return launches
+
+
+def phase_cli(seed: int):
+    """The CLIs in this process, in a temporary directory: ``cli.train`` at
+    256×320 b2 for 4 steps (snapshots at 2 and 4, an evaluation of 2
+    held-out batches at 4), the same run resumed from its step-2 checkpoint,
+    and ``cli.evaluate`` on the step-4 checkpoint. Losses of steps 3 and 4
+    agree, the evaluation reproduces the in-run report and detections, and
+    B2 and B1 launch as the steps and evaluations need."""
+    common = ["--image-size", "256x320", "--batch-size", "2", "--iterations", "4",
+              "--snapshot-every", "2", "--eval-every", "4", "--eval-batches", "2",
+              "--log-every", "1", "--seed", str(seed)]
+    spy_dets = {}
+    make = evaluator.make_predict_fn
+
+    def spy(name):
+        def factory(*args, **kwargs):
+            predict = make(*args, **kwargs)
+
+            def spied(*a):
+                det = predict(*a)
+                spy_dets.setdefault(name, []).append(
+                    {k: v.clone() for k, v in det._asdict().items() if v is not None})
+                return det
+            return spied
+        return factory
+
+    tmp = Path(tempfile.mkdtemp(prefix="chip_smoke_cli_"))
+    launches = {}
+    t0 = time.perf_counter()
+    try:
+        for name in ("run", "resumed", "evaluate"):
+            evaluator.make_predict_fn = spy(name)
+            torch.cuda.synchronize()
+            reset_launches()
+            if name == "run":
+                train_cli.main(["--out", str(tmp / "a"), *common])
+            elif name == "resumed":
+                (tmp / "b" / "checkpoints").mkdir(parents=True)
+                shutil.copy(tmp / "a" / "checkpoints" / "step_00000002.pt",
+                            tmp / "b" / "checkpoints")
+                train_cli.main(["--out", str(tmp / "b"), "--resume", *common])
+            else:
+                report = evaluate_cli.main([
+                    "--weight", str(tmp / "a" / "checkpoints" / "step_00000004.pt"),
+                    "--n-batches", "2", "--seed", str(seed),
+                    "--set", "train.image_size=256x320",
+                    "--set", "train.batch_size=2"])
+            torch.cuda.synchronize()
+            launches[name] = read_launches()
+        rows = {d: [json.loads(line) for line in open(tmp / d / "log.jsonl")]
+                for d in ("a", "b")}
+    finally:
+        evaluator.make_predict_fn = make
+        shutil.rmtree(tmp, ignore_errors=True)
+    secs = time.perf_counter() - t0
+    print(f"[cli] launches (train, resumed, evaluate): {launches}")
+    want = {"run": {"roi_align_fwd": 4 * 2 + 2 * 2, "region_scatter": 4},
+            "resumed": {"roi_align_fwd": 2 * 2 + 2 * 2, "region_scatter": 2},
+            "evaluate": {"roi_align_fwd": 2 * 2, "region_scatter": 0}}
+    if launches != want:
+        fail(f"CLI launches {launches}, expected {want}")
+    steps = {d: {r["iteration"]: r for r in rs if "main/loss" in r}
+             for d, rs in rows.items()}
+    if sorted(steps["a"]) != [1, 2, 3, 4] or sorted(steps["b"]) != [3, 4]:
+        fail(f"CLI log rows {sorted(steps['a'])} and {sorted(steps['b'])}")
+    worst = 0.0
+    for it in (3, 4):
+        for k, v in steps["a"][it].items():
+            if k.endswith("loss"):
+                rel = abs(steps["b"][it][k] - v) / max(abs(v), 1e-30)
+                worst = max(worst, rel)
+                if not np.isfinite(v) or rel > CLI_LOSS_TOL:
+                    fail(f"resumed CLI step {it} {k}: {steps['b'][it][k]} vs {v}")
+    print(f"[cli] steps 3-4 resumed from the step-2 checkpoint: worst loss "
+          f"difference {worst:.3e} relative; losses "
+          + ", ".join(f"{it}: {steps['a'][it]['main/loss']:.5f}" for it in (1, 2, 3, 4)))
+    val = [r for r in rows["a"] if "validation/main/map" in r]
+    in_run = {k[len("validation/main/"):]: v for k, v in val[0].items()
+              if k.startswith("validation/main/")}
+    if report.keys() != in_run.keys():
+        fail("cli.evaluate report keys differ from the in-run report's")
+    err = max(abs(report[k] - in_run[k]) for k in report)
+    dets = [max(float((a[k].float() - b[k].float()).abs().max()) for k in a)
+            for a, b in zip(spy_dets["run"], spy_dets["evaluate"])]
+    print(f"[cli] cli.evaluate on the step-4 checkpoint against the in-run "
+          f"report: worst field {err:.3e}; detections' worst difference "
+          f"{max(dets):.3e} over {len(dets)} batches; map {report['map']:.4f}, "
+          f"coco/map {report['coco/map']:.4f}; {secs:.1f} s for the phase")
+    if err > CLI_REPORT_TOL or len(dets) != 2 or max(dets) > CLI_REPORT_TOL:
+        fail(f"cli.evaluate differs from the in-run evaluation: report {err}, "
+             f"detections {dets}")
+    return {k: sum(v[k] for v in launches.values()) for k in want["run"]}
+
+
 def time_calls(kernel, plain, bound, calls, label: str) -> dict:
     """Hold ``kernel`` against ``plain`` on each of ``calls`` (a path's own
     inputs) and time both → sums over the calls."""
@@ -934,6 +1142,8 @@ def phase_kernels_line(paths: dict):
     (_, fwd_plain, fwd_src, fwd_repl), (_, bwd_plain, bwd_src, bwd_repl) = KERNELS
     fwd, bwd, lib, products = {}, {}, {}, {}
     for path, (_, fwd_calls, bwd_calls, product_calls) in paths.items():
+        if not fwd_calls:  # the eval and CLI paths: launches only
+            continue
         fwd[path] = time_calls(ROI_ALIGN, fwd_plain, roi_align_bound,
                                fwd_calls, path)
         if bwd_calls:
@@ -990,6 +1200,8 @@ def main(argv=None):
     paths["bf16_train"] = phase_train(N_TRAIN_STEPS, args.seed,
                                       BF16_TRAIN_SETTINGS)
     phase_bf16_gpu_vs_cpu(args.seed)
+    paths["eval"] = (phase_eval(N_EVAL_BATCHES, args.seed), [], [], [])
+    paths["cli"] = (phase_cli(args.seed), [], [], [])
     entries = phase_kernels_line(paths)
     if args.against:
         time_against(args.against, {path: v[1] for path, v in paths.items()})

@@ -1,0 +1,290 @@
+"""Training CLI of the port (counterpart of the JAX package's ``cli/train.py``).
+
+    python -m maskrcnn_tpu_torch.cli.train --preset fpn_mask --out runs/x \\
+        [--iterations N] [--batch-size B] [--image-size HxW] [--lr LR] \\
+        [--resume | --weight CKPT] [--snapshot-every N] [--log-every N] \\
+        [--eval-every N --eval-batches N] [--label-file F] [--seed S] \\
+        [--set SECTION.KEY=VALUE ...] [--device cuda|cpu]
+
+Trains on the step-pure synthetic stream (``SyntheticDetectionData``,
+``--seed``) on the GPU unless ``--device cpu``. Writes ``<out>/args.json``
+(the flags and the effective config), ``<out>/log.jsonl`` (``main/*`` rows
+every ``--log-every`` steps, ``validation/main/*`` rows from the in-run
+evaluator) and full-state checkpoints ``<out>/checkpoints/step_<8 digits>.pt``
+every ``--snapshot-every`` steps and at the end. ``--resume`` restarts from
+the latest checkpoint exactly: the stream seeks to its step. The in-run
+evaluator reads a held-out stream, seed ``--seed + 999``.
+
+The class names come from ``--label-file`` (default ``data/label_coco.txt``,
+80 classes) and set ``model.n_fg_class``; ``--set`` is applied after them,
+so ``--set model.n_fg_class=3`` trains 3 classes (with numbered names).
+
+Mid-run control channel: write JSON to ``<out>/commands.json``; it is read
+at the next logging boundary and renamed to ``commands.json.done``. Keys:
+``{"snapshot": true}`` checkpoints now, ``{"eval": true}`` evaluates now,
+``{"stop": true}`` checkpoints and exits.
+"""
+
+from __future__ import annotations
+
+import argparse
+import dataclasses
+import json
+import os
+import time
+
+# options of the JAX CLI that the port does not have yet, and the ROADMAP
+# item that brings each
+UNPORTED = {
+    "buckets": "A.2 (multi-bucket padding comes with the COCO loader)",
+    "data_parallel": "A.5 (data parallelism)",
+    "pretrained_npz": "A.6 (weight import from chainer npz)",
+    "steps_per_dispatch": "A.7 (chained dispatch is TPU plumbing; CUDA graphs are its analogue)",
+}
+UNPORTED_DATASETS = {"coco": "A.2 (the COCO loader)",
+                     "depth": "A.4 (the depth keypoint data)"}
+# the non-finite-loss trap reads the loss once every this many steps, so the
+# host does not wait for the device on every step
+TRAP_EVERY = 20
+DEFAULT_LABELS = os.path.join(os.path.dirname(__file__), "..", "..", "data",
+                              "label_coco.txt")
+
+
+def parse_args(argv=None):
+    p = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    p.add_argument("--preset", default="fpn_mask",
+                   help="a preset of maskrcnn_tpu_torch/config.py with the "
+                        "FPN backbone and mask head")
+    p.add_argument("--out", default="result", help="output directory")
+    p.add_argument("--iterations", type=int, default=None)
+    p.add_argument("--lr", type=float, default=None)
+    p.add_argument("--batch-size", type=int, default=None)
+    p.add_argument("--image-size", default=None,
+                   help="HxW static padded size, e.g. 512x512")
+    p.add_argument("--weight", default=None,
+                   help="checkpoint to warm-start parameters and buffers from")
+    p.add_argument("--resume", action="store_true",
+                   help="exact resume from the latest checkpoint in --out")
+    p.add_argument("--snapshot-every", type=int, default=5000)
+    p.add_argument("--log-every", type=int, default=100)
+    p.add_argument("--eval-every", type=int, default=0,
+                   help="evaluate every N iterations (0: never)")
+    p.add_argument("--eval-batches", type=int, default=8)
+    p.add_argument("--dataset", default="synthetic",
+                   choices=["synthetic", "coco", "depth"])
+    p.add_argument("--label-file", default=None,
+                   help="class names, one per line; sets model.n_fg_class "
+                        "(default: data/label_coco.txt)")
+    p.add_argument("--seed", type=int, default=0)
+    p.add_argument("--set", action="append", default=[], metavar="SEC.KEY=V",
+                   help="config override, applied last, e.g. --set "
+                        "model.freeze_bn=False")
+    p.add_argument("--device", default=None,
+                   help="torch device (default: the GPU; cpu on purpose)")
+    p.add_argument("--buckets", default=None, help="not ported yet")
+    p.add_argument("--data-parallel", action="store_true", help="not ported yet")
+    p.add_argument("--pretrained-npz", default=None, help="not ported yet")
+    p.add_argument("--steps-per-dispatch", type=int, default=None,
+                   help="not ported yet")
+    args = p.parse_args(argv)
+    reject_unported(p, args, UNPORTED)
+    return args
+
+
+
+def reject_unported(parser, args, options: dict):
+    """Exit with an error naming the ROADMAP item for each given option (and
+    ``--dataset``) that the port does not have yet: never ignore one."""
+    if args.dataset in UNPORTED_DATASETS:
+        parser.error(f"--dataset {args.dataset}: not in the port yet, see "
+                     f"ROADMAP {UNPORTED_DATASETS[args.dataset]}")
+    for key, item in options.items():
+        if getattr(args, key):
+            parser.error(f"--{key.replace('_', '-')}: not in the port yet, "
+                         f"see ROADMAP {item}")
+
+
+def build_config(preset: str, label_file: str | None, overrides: list[str],
+                 train: dict | None = None):
+    """(config, class names): the preset, the flag shortcuts in ``train``,
+    the label file (default the COCO names) as ``model.n_fg_class``, then
+    ``--set``. Names that no longer match ``n_fg_class`` are dropped."""
+    from maskrcnn_tpu_torch import config as cfg_lib
+
+    cfg = cfg_lib.PRESETS[preset]()
+    if train:
+        cfg = cfg_lib._rep(cfg, train=train)
+    if label_file is None and os.path.exists(DEFAULT_LABELS):
+        label_file = DEFAULT_LABELS
+    names = None
+    if label_file:
+        with open(label_file) as f:
+            names = [ln.strip() for ln in f if ln.strip()]
+        cfg = cfg_lib._rep(cfg, model=dict(n_fg_class=len(names)))
+    cfg = cfg_lib.apply_overrides(cfg, overrides)
+    if names is not None and len(names) != cfg.model.n_fg_class:
+        print(f"[labels] model.n_fg_class={cfg.model.n_fg_class} from --set: "
+              f"the {len(names)} names of {label_file} are not used")
+        names = None
+    return cfg, names
+
+
+def prepare_device(device):
+    """The torch device of a run; on a GPU, float32 means float32 (TF32 off
+    for matmuls and cuDNN)."""
+    import torch
+
+    from maskrcnn_tpu_torch.utils.device import resolve_device
+
+    dev = resolve_device(device)
+    if dev.type == "cuda":
+        torch.backends.cuda.matmul.allow_tf32 = False
+        torch.backends.cudnn.allow_tf32 = False
+    return dev
+
+
+def main(argv=None):
+    args = parse_args(argv)
+
+    import numpy as np
+    import torch
+
+    from maskrcnn_tpu_torch.data.prefetch import Prefetcher
+    from maskrcnn_tpu_torch.data.synthetic import SyntheticDetectionData
+    from maskrcnn_tpu_torch.eval.evaluator import evaluate_dataset
+    from maskrcnn_tpu_torch.models.maskrcnn import MaskRCNN
+    from maskrcnn_tpu_torch.train.checkpoint import (
+        latest_checkpoint,
+        load_params_only,
+        restore_checkpoint,
+        save_checkpoint,
+    )
+    from maskrcnn_tpu_torch.train.state import create_train_state, lr_schedule
+    from maskrcnn_tpu_torch.train.step import make_train_step
+    from maskrcnn_tpu_torch.utils.metrics import MetricLogger
+
+    train_over = {}
+    if args.iterations is not None:
+        train_over["iterations"] = args.iterations
+    if args.lr is not None:
+        train_over["lr"] = args.lr
+    if args.batch_size is not None:
+        train_over["batch_size"] = args.batch_size
+    if args.image_size:
+        train_over["image_size"] = tuple(int(v) for v in args.image_size.split("x"))
+    cfg, label_names = build_config(args.preset, args.label_file, args.set,
+                                    train_over)
+    data = SyntheticDetectionData(cfg, seed=args.seed)
+
+    os.makedirs(args.out, exist_ok=True)
+    with open(os.path.join(args.out, "args.json"), "w") as f:
+        json.dump({"cli": vars(args), "config": dataclasses.asdict(cfg)}, f,
+                  indent=2, default=str)
+
+    device = prepare_device(args.device)
+    state = create_train_state(cfg, MaskRCNN(cfg, device=device, seed=args.seed),
+                               seed=args.seed + 1)
+    ckpt_dir = os.path.join(args.out, "checkpoints")
+    if args.resume:
+        path = latest_checkpoint(ckpt_dir)
+        if path:
+            restore_checkpoint(path, state)
+            print(f"resumed from {path} at step {state.step}")
+    elif args.weight:
+        load_params_only(args.weight, state)
+        print(f"warm-started parameters and buffers from {args.weight}")
+    start = state.step
+
+    # step-pure stream, prepared on a thread while the device steps
+    batches = Prefetcher(data.iter_from(start), size=2)
+    step = make_train_step(cfg)
+    sched = lr_schedule(cfg)
+    if cfg.train.iterations // cfg.train.lr_decay_period > 3:
+        print(f"[lr] WARNING: lr decays ×{cfg.train.lr_decay_factor} every "
+              f"{cfg.train.lr_decay_period} steps — "
+              f"{cfg.train.iterations // cfg.train.lr_decay_period} decays "
+              "over this run (epoch-aware period on a small dataset?). "
+              "Override with --set train.lr_decay_every_iters=N.")
+    logger = MetricLogger(args.out, print_every=args.log_every)
+
+    def poll_commands():
+        path = os.path.join(args.out, "commands.json")
+        if not os.path.exists(path):
+            return {}
+        try:
+            with open(path) as f:
+                cmds = json.load(f)
+        except (OSError, json.JSONDecodeError):
+            return {}
+        os.replace(path, path + ".done")
+        return cmds if isinstance(cmds, dict) else {}
+
+    predict_cache = {}
+
+    def run_eval(step_i):
+        # a held-out stream of its own, read from its start every time
+        held_out = SyntheticDetectionData(cfg, seed=args.seed + 999)
+        t0 = time.perf_counter()
+        rep = evaluate_dataset(cfg, state.model, iter(held_out),
+                               args.eval_batches, label_names=label_names,
+                               predict_cache=predict_cache)
+        secs = time.perf_counter() - t0
+        n_images = args.eval_batches * cfg.train.batch_size
+        print(f"[eval @{step_i}] " + " ".join(
+            f"{k}={v:.4f}" for k, v in rep.items()
+            if "/" not in k or k.startswith("coco"))
+            + f" ({secs:.1f} s, {secs / n_images:.3f} s/image)")
+        # to the JSONL, not only stdout: the round-4 0.0-AP run was
+        # invisible in its own log
+        logger.log_validation(step_i, rep)
+        aps = [v for k, v in rep.items() if "/" not in k]
+        if aps and max(aps) == 0.0 and step_i >= 1000:
+            print(f"[eval @{step_i}] *** WARNING: every eval metric is 0.0 "
+                  "after 1000+ steps — the model is training blind. Check "
+                  "the gradient path, the predict path on a known-good "
+                  "checkpoint, and the data. ***")
+        return rep
+
+    it = start
+    while it < cfg.train.iterations:
+        metrics = step(state, next(batches))
+        step_i = it + 1
+        if step_i % TRAP_EVERY == 0:
+            loss = float(metrics["loss"])
+            if not np.isfinite(loss):
+                path = save_checkpoint(ckpt_dir, state, step_i)
+                parts = {k: float(v) for k, v in metrics.items()}
+                raise SystemExit(f"[trap] non-finite loss at step {step_i}; "
+                                 f"breakdown {parts}; state dumped to {path}")
+        if step_i % args.log_every == 0 or step_i == 1:
+            scalars = {k: float(v) for k, v in metrics.items()}
+            # share of batch fetches that found the prefetch queue empty
+            # (near 1: the host's data preparation bounds the run)
+            scalars["prefetch_starved"] = batches.starved / max(batches.served, 1)
+            if device.type == "cuda":
+                scalars["peak_memory_gib"] = (
+                    torch.cuda.max_memory_allocated(device) / 2**30)
+            logger.log(step_i, scalars,
+                       n_images=cfg.train.batch_size * args.log_every,
+                       lr=sched(step_i))
+        if step_i % args.snapshot_every == 0 or step_i == cfg.train.iterations:
+            print(f"saved {save_checkpoint(ckpt_dir, state, step_i)}")
+        if args.eval_every and step_i % args.eval_every == 0:
+            run_eval(step_i)
+        if step_i % args.log_every == 0:
+            cmds = poll_commands()
+            if cmds.get("snapshot"):
+                print(f"[commands] snapshot at {step_i}: "
+                      f"{save_checkpoint(ckpt_dir, state, step_i)}")
+            if cmds.get("eval"):
+                run_eval(step_i)
+            if cmds.get("stop"):
+                print(f"[commands] stop at {step_i}")
+                save_checkpoint(ckpt_dir, state, step_i)
+                break
+        it = step_i
+    logger.close()
+
+
+if __name__ == "__main__":
+    main()

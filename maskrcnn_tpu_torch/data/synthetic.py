@@ -28,7 +28,8 @@ class Request(NamedTuple):
 
 class SyntheticDetectionData:
     """Deterministic stream of fixed-shape train batches: ``batch(i)`` is a
-    pure function of ``(seed, i)``."""
+    pure function of ``(seed, i)``; iterating yields ``batch(0)``,
+    ``batch(1)``, ..."""
 
     def __init__(self, cfg: Config, seed: int = 0):
         self.cfg = cfg
@@ -98,6 +99,17 @@ class SyntheticDetectionData:
             gt_boxes=boxes, gt_labels=labels, gt_valid=valid,
             gt_masks=(masks * 255.0 + 0.5).astype(np.uint8),
         )
+
+    def iter_from(self, step: int = 0):
+        """Step-pure stream from ``batch(step)`` on: a run resumed at step k
+        sees exactly the batches an uninterrupted run would."""
+        i = step
+        while True:
+            yield self.batch(i)
+            i += 1
+
+    def __iter__(self):
+        return self.iter_from(0)
 
 
 class SyntheticRequests(SyntheticDetectionData):

@@ -1,0 +1,98 @@
+"""Dataset evaluator (port of ``maskrcnn_tpu/eval/evaluator.py``): VOC mask
+mAP@0.5 with per-class ``ap/<name>``, and COCO mask AP with pycocotools
+semantics, over a stream of batches that carry GT masks.
+
+Prediction and mask pasting run on the model's device; only the boolean
+masks, labels and scores go to the host, for the numpy scorers
+(:mod:`.detection_eval`, :mod:`.coco_eval`, copies of the JAX package's).
+The keypoint evaluator waits for the keypoint head (ROADMAP A.4).
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from maskrcnn_tpu_torch.config import Config
+from maskrcnn_tpu_torch.eval.coco_eval import evaluate_coco
+from maskrcnn_tpu_torch.eval.detection_eval import eval_instance_segmentation_voc
+from maskrcnn_tpu_torch.eval.postprocess import paste_masks
+from maskrcnn_tpu_torch.eval.predict import make_predict_fn
+
+
+def crop_to_full_mask(gt_masks_crops, gt_boxes, gt_valid, img_hw):
+    """(G_valid, H, W) bool: each valid GT's box-crop mask resized to its box
+    and thresholded at 0.5, on the crops' device. uint8 crops encode [0, 1]
+    as 0..255."""
+    crops = torch.as_tensor(gt_masks_crops)
+    if crops.dtype == torch.uint8:
+        crops = crops.float() / 255.0
+    return paste_masks(gt_boxes, crops, gt_valid, img_hw, threshold=0.5)
+
+
+def evaluate_dataset(
+    cfg: Config,
+    model,
+    batches,  # iterable of Batch with gt_masks present
+    n_batches: int,
+    label_names: list[str] | None = None,
+    predict_cache: dict | None = None,
+) -> dict:
+    """Runs the two-pass predict over ``n_batches`` and computes mask mAP.
+
+    ``predict_cache`` (image size → predict fn) keeps one predict per
+    bucket across calls. Returns ``map`` (VOC), ``coco/*`` and
+    ``ap/<name>`` for each class with GT.
+    """
+    if predict_cache is None:
+        predict_cache = {}
+
+    def predict_for(hw):
+        if hw not in predict_cache:
+            predict_cache[hw] = make_predict_fn(cfg, model, image_size=hw)
+        return predict_cache[hw]
+
+    pred_masks, pred_labels, pred_scores = [], [], []
+    gt_masks_all, gt_labels_all = [], []
+
+    for _, batch in zip(range(n_batches), batches):
+        predict = predict_for(tuple(batch.images.shape[1:3]))
+        det = predict(batch.images, batch.img_hw, batch.scale)
+        dev = det.boxes.device  # the model's
+        valid_all = det.valid.cpu().numpy()
+        labels_all = det.labels.cpu().numpy()
+        scores_all = det.scores.cpu().numpy()
+        gt_valid = np.asarray(batch.gt_valid)
+        for i in range(batch.images.shape[0]):
+            hw = (int(batch.img_hw[i][0]), int(batch.img_hw[i][1]))
+            valid = valid_all[i]
+            pred_masks.append(paste_masks(
+                det.boxes[i], det.masks[i], det.valid[i], hw).cpu().numpy())
+            pred_labels.append(labels_all[i][valid])
+            pred_scores.append(scores_all[i][valid])
+            gt_masks_all.append(crop_to_full_mask(
+                torch.as_tensor(batch.gt_masks[i], device=dev),
+                torch.as_tensor(batch.gt_boxes[i], device=dev),
+                torch.as_tensor(gt_valid[i], device=dev), hw).cpu().numpy())
+            gt_labels_all.append(np.asarray(batch.gt_labels[i])[gt_valid[i]])
+
+    n_class = cfg.model.n_fg_class
+    voc = eval_instance_segmentation_voc(
+        pred_masks, pred_labels, pred_scores, gt_masks_all, gt_labels_all,
+        n_class,
+    )
+    # crowd regions never reach a Batch, so gt_crowd stays empty
+    coco = evaluate_coco(
+        pred_masks, pred_labels, pred_scores, gt_masks_all, gt_labels_all,
+        n_class,
+    )
+    report = {"map": voc["map"], "coco/map": coco["AP"],
+              "coco/map50": coco["AP50"], "coco/map75": coco["AP75"],
+              "coco/map_small": coco["APs"], "coco/map_medium": coco["APm"],
+              "coco/map_large": coco["APl"], "coco/ar1": coco["AR1"],
+              "coco/ar10": coco["AR10"], "coco/ar100": coco["AR100"]}
+    names = label_names or [str(i) for i in range(n_class)]
+    for i, name in enumerate(names):
+        if np.isfinite(voc["ap"][i]):
+            report[f"ap/{name}"] = float(voc["ap"][i])
+    return report

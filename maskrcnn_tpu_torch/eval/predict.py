@@ -38,7 +38,7 @@ class Detections(NamedTuple):
     labels: torch.Tensor  # (B, D) int32, 0-based fg class
     valid: torch.Tensor  # (B, D) bool
     masks: torch.Tensor | None  # (B, D, S, S) sigmoid probs
-    heatmaps: torch.Tensor | None  # keypoint heads (not in the port yet)
+    heatmaps: torch.Tensor | None  # keypoint heads: ROADMAP A.4, always None here
 
 
 def decode_boxes(cfg: Config, rois, locs, probs, rvalid, img_hw):

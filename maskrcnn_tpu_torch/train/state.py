@@ -74,6 +74,14 @@ class MomentumSGD(torch.optim.Optimizer):
             torch._foreach_add_(params, torch._foreach_mul(new, -group["lr"]))
             torch._foreach_copy_(bufs, new)
 
+    def load_state_dict(self, state_dict):
+        """``Optimizer.load_state_dict`` casts every buffer to its
+        parameter's dtype; the momentum buffer goes back to
+        ``momentum_dtype`` (exact: it was stored in it)."""
+        super().load_state_dict(state_dict)
+        for st in self.state.values():
+            st["momentum_buffer"] = st["momentum_buffer"].to(self.momentum_dtype)
+
 
 def make_optimizer(cfg: Config, model: torch.nn.Module) -> torch.optim.Optimizer:
     """``torch.optim.SGD`` with a float32 buffer (``momentum_dtype`` None or

@@ -393,3 +393,31 @@ def test_train_step_launches_the_kernels(cuda):
             (2, 1) if device == "cuda" else (0, 0))
     for name, want in metrics["cpu"].items():
         assert metrics["cuda"][name] == pytest.approx(want, rel=1e-3), name
+
+
+@pytest.mark.parametrize("content", ["probs", "binary_uint8"])
+def test_paste_masks_on_the_card_equals_the_cpu(cuda, content):
+    """``paste_masks`` (and ``crop_to_full_mask``) is elementwise float32
+    arithmetic and gathers: the card gives the CPU's bits, on boxes across
+    the canvas edge, under 28 px and of zero extent."""
+    from maskrcnn_tpu_torch.eval.evaluator import crop_to_full_mask
+    from maskrcnn_tpu_torch.eval.postprocess import paste_masks
+
+    gen = torch.Generator().manual_seed(0)
+    d, hw = 64, (800, 1024)
+    y0 = torch.rand(d, generator=gen) * 900 - 60
+    x0 = torch.rand(d, generator=gen) * 1100 - 60
+    size = torch.rand(d, 2, generator=gen) ** 2 * 500
+    size[::7] = 0.0
+    boxes = torch.stack([y0, x0, y0 + size[:, 0], x0 + size[:, 1]], 1)
+    valid = torch.rand(d, generator=gen) < 0.9
+    if content == "probs":
+        masks = torch.rand(d, 28, 28, generator=gen)
+        got = paste_masks(boxes.cuda(), masks.cuda(), valid.cuda(), hw)
+        want = paste_masks(boxes, masks, valid, hw)
+    else:
+        masks = torch.where(torch.rand(d, 112, 112, generator=gen) < 0.5, 255, 0).to(torch.uint8)
+        got = crop_to_full_mask(masks.cuda(), boxes.cuda(), valid.cuda(), hw)
+        want = crop_to_full_mask(masks, boxes, valid, hw)
+    assert got.device.type == "cuda" and got.shape == want.shape == (int(valid.sum()), *hw)
+    assert want.any() and torch.equal(got.cpu(), want)

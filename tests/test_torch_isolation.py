@@ -2,7 +2,8 @@
 
 - a fresh interpreter imports every module of ``maskrcnn_tpu_torch`` and
   ``chip_smoke.py`` and finds neither ``jax`` nor ``maskrcnn_tpu`` (or a
-  submodule of it) in ``sys.modules``;
+  submodule of it) in ``sys.modules``, nor ``cv2`` or ``PIL``, which the
+  card's machine lacks;
 - an AST scan of the same sources finds no such import;
 - without CUDA, the entry points raise instead of running on the CPU, and
   ``chip_smoke.py`` exits non-zero without printing a result.
@@ -21,7 +22,8 @@ torch = pytest.importorskip("torch")
 
 ROOT = Path(__file__).resolve().parents[1]
 PORT = ROOT / "maskrcnn_tpu_torch"
-FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "orbax", "maskrcnn_tpu")
+FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "orbax", "maskrcnn_tpu",
+             "cv2", "PIL")
 
 
 def _forbidden(name: str) -> bool:
@@ -54,6 +56,7 @@ def test_forbidden_name_rule():
     assert _forbidden("maskrcnn_tpu") and _forbidden("maskrcnn_tpu.ops")
     assert _forbidden("jax.numpy") and not _forbidden("maskrcnn_tpu_torch")
     assert not _forbidden("maskrcnn_tpu_torch.ops") and not _forbidden("jaxtyping_x")
+    assert _forbidden("cv2") and _forbidden("PIL.Image") and not _forbidden("cv2x")
 
 
 def test_importing_the_port_loads_no_jax():
@@ -72,6 +75,10 @@ def test_importing_the_port_loads_no_jax():
     assert "maskrcnn_tpu_torch.eval.predict" in loaded
     assert "maskrcnn_tpu_torch.train.step" in loaded
     assert "maskrcnn_tpu_torch.kernels.region_scatter_cuda" in loaded
+    for mod in ("eval.evaluator", "eval.postprocess", "eval.coco_eval",
+                "eval.detection_eval", "data.prefetch", "utils.metrics",
+                "train.checkpoint", "cli.train", "cli.evaluate"):
+        assert f"maskrcnn_tpu_torch.{mod}" in loaded
     assert [m for m in loaded if _forbidden(m)] == []
 
 
