@@ -58,7 +58,30 @@ Phases, in order; any failure exits non-zero before the result is printed:
    4; the same run resumed from step 2 (losses of steps 3 and 4 within 1e-3
    relative); ``cli.evaluate`` on the step-4 checkpoint (the in-run report
    and detections within 1e-6); launch counts around each;
-12. the kernels line: each kernel on the inputs the main paths gave it,
+12. the keypoint serving path: ``fpn_keypoint`` at full width (8 head convs
+   of 256, 17 keypoints, 56² heatmaps) at 800×1024 b1 serves requests as in
+   phase 4 (2 forward launches a request), one request again on the CPU:
+   equal ``valid``/``labels``, boxes, scores and heatmaps within the same
+   tolerance, decoded keypoints within it of the box size but at heatmap
+   ties;
+13. the keypoint train path: 1 + 3 full-width b2 steps at 800×1024 as in
+   phase 5 (2 and 1 launches a step), and one 256×320 step on the card
+   against the CPU as in phase 6;
+14. keypoint evaluation: ``evaluate_keypoint_dataset`` (OKS AP) over 4
+   synthetic 800×1024 images, 2 forward launches a batch, seconds an image;
+15. COCO-format data through the CLIs, in a temporary directory written
+   from the seed (PNG images, landscape and portrait; polygon, compressed
+   and uncompressed RLE masks; a crowd annotation; sparse category ids;
+   people with keypoints): ``cli.train --dataset coco --buckets
+   256x320,320x256`` for ``fpn_mask`` (4 steps, resumed from step 2) and
+   ``fpn_keypoint`` (2 steps), each with an in-run evaluation, then
+   ``cli.evaluate --dump-results``: the report equals the in-run one, every
+   ``segm`` decodes to the mask the export pasted, boxes lie in the
+   original images, category ids are the file's, keypoint entries hold
+   17 × 3 numbers; launches counted by path and bucket shape, and both
+   kernels must run at both shapes; the first portrait step's kernel inputs
+   are kept for phase 16;
+16. the kernels line: each kernel on the inputs the main paths gave it,
    held against its plain version, with both times, its bound (for the
    ROIAlign forward the work these inputs need, with the dense count beside
    it) and, where one PyTorch call computes the same function, that call's
@@ -103,18 +126,23 @@ from maskrcnn_tpu_torch.bench import (
 from maskrcnn_tpu_torch import config as cfg_lib
 from maskrcnn_tpu_torch.cli import evaluate as evaluate_cli
 from maskrcnn_tpu_torch.cli import train as train_cli
+from maskrcnn_tpu_torch.data import _native as coco_native
+from maskrcnn_tpu_torch.data import coco as coco_mod
+from maskrcnn_tpu_torch.data.coco_synthetic import write_coco
 from maskrcnn_tpu_torch.data.synthetic import (
     SyntheticDetectionData,
     SyntheticRequests,
 )
 from maskrcnn_tpu_torch.eval import evaluator
-from maskrcnn_tpu_torch.eval.postprocess import paste_masks
+from maskrcnn_tpu_torch.eval import export as export_mod
+from maskrcnn_tpu_torch.eval.postprocess import decode_keypoints, paste_masks
 from maskrcnn_tpu_torch.eval.predict import make_predict_fn
 from maskrcnn_tpu_torch.kernels import region_scatter_cuda, roi_align_cuda
 from maskrcnn_tpu_torch.kernels.build import nvcc_path
 from maskrcnn_tpu_torch.models.maskrcnn import MaskRCNN, pyramid_shapes
 from maskrcnn_tpu_torch.ops import roi_align as roi_align_ops
 from maskrcnn_tpu_torch.ops.levels import map_rois_to_fpn_levels
+from maskrcnn_tpu_torch.train import step as step_mod
 from maskrcnn_tpu_torch.train.state import create_train_state
 from maskrcnn_tpu_torch.train.step import SamplerDraws, make_train_step
 from maskrcnn_tpu_torch.utils.device import card_name_and_power_limit
@@ -150,8 +178,15 @@ FLIP_SHARE = 1e-5  # ... and at most this share of pasted pixels differs
 CLI_LOSS_TOL = 1e-3  # resumed CLI run vs uninterrupted, each loss, relative
 #   (cuDNN's backward need not repeat bit for bit; B1 and B2 do)
 CLI_REPORT_TOL = 1e-6  # cli.evaluate vs the in-run report, each field
+SOFTMAX_UNSEEN = ("head.mask.deconv1.bias", "head.mask.conv2.bias")  # the
+#   keypoint head's: a constant on all 56² bins of a keypoint, which its
+#   softmax cannot see, so their gradients are rounding noise
 BF16_SETTINGS = dict(dtype="bfloat16")  # phases 7 and 9's serving
 BF16_TRAIN_SETTINGS = dict(dtype="bfloat16", freeze_bn=False)  # 8 and 9
+N_KP_EVAL_BATCHES = 4  # keypoint evaluation at 800x1024 b1
+COCO_SIZES = [(240, 320), (320, 240), (256, 300), (300, 256), (224, 320),
+              (320, 224), (250, 310), (310, 250)]  # landscape and portrait
+COCO_BUCKETS = "256x320,320x256"
 
 ROI_ALIGN = roi_align_cuda.roi_align_fwd
 SCATTER = region_scatter_cuda.region_scatter
@@ -518,21 +553,25 @@ def read_launches() -> dict:
     return {kernel.name: kernel.launches for kernel, *_ in KERNELS}
 
 
-def phase_predict(n_requests: int, seed: int, settings=None):
+def phase_predict(n_requests: int, seed: int, settings=None,
+                  preset: str = "fpn_mask"):
     """Serve requests through the port's predict on the card; with
     ``settings`` (model config fields) in that configuration, else float32
     and held against the CPU."""
-    cfg = cfg_lib._rep(predict_config("fpn_mask", 1, 800, 1024),
+    cfg = cfg_lib._rep(predict_config(preset, 1, 800, 1024),
                        model=settings or {})
-    tag = "predict" if settings is None else "bf16-predict"
+    keypoint = preset == "fpn_keypoint"
+    tag = "kp-predict" if keypoint else (
+        "predict" if settings is None else "bf16-predict")
     t0 = time.perf_counter()
     model = spread_class_scores(MaskRCNN(cfg, seed=seed))
     checksum = sum(float(v.double().abs().sum()) for v in model.state_dict().values())
     predict = make_predict_fn(cfg, model)
     data = SyntheticRequests(cfg, seed=seed)
     requests = [tuple(data.batch(i)) for i in range(n_requests)]
-    print(f"[{tag}] fpn_mask 800x1024 b1 {cfg.model.dtype}, "
-          f"{cfg.model.n_fg_class} classes, weights' abs sum {checksum:.6f}, "
+    print(f"[{tag}] {preset} 800x1024 b1 {cfg.model.dtype}, "
+          f"{cfg.model.n_fg_class} classes, {cfg.model.n_mask_convs} head "
+          f"convs, weights' abs sum {checksum:.6f}, "
           f"model and {n_requests} requests ready in "
           f"{time.perf_counter() - t0:.1f} s")
 
@@ -555,7 +594,10 @@ def phase_predict(n_requests: int, seed: int, settings=None):
         for name, value in det._asdict().items():
             if value is not None and value.is_floating_point() and not torch.isfinite(value).all():
                 fail(f"non-finite {name}")
-        if det.masks.shape != (1, cfg.eval.max_detections, 28, 28):
+        d = cfg.eval.max_detections
+        if keypoint and det.heatmaps.shape != (1, d, 56, 56, cfg.model.n_keypoints):
+            fail(f"heatmap shape {tuple(det.heatmaps.shape)}")
+        if not keypoint and det.masks.shape != (1, d, 28, 28):
             fail(f"mask shape {tuple(det.masks.shape)}")
     print(f"[{tag}] request p50 {percentile(times, 0.5):.3f} ms, max "
           f"{max(times):.3f} ms (CUDA events, {n_requests} requests after 1 "
@@ -572,36 +614,69 @@ def phase_predict(n_requests: int, seed: int, settings=None):
     cpu_model = MaskRCNN(cfg, device="cpu", seed=seed)
     cpu_model.load_state_dict(model.state_dict())
     ref = make_predict_fn(cfg, cpu_model)(*requests[0])
-    print(f"[predict] request 0 on the CPU in {time.perf_counter() - t0:.1f} s, "
+    print(f"[{tag}] request 0 on the CPU in {time.perf_counter() - t0:.1f} s, "
           f"{int(ref.valid.sum())} valid detections")
     for name in ("valid", "labels"):
         if not torch.equal(getattr(det0, name).cpu(), getattr(ref, name)):
             fail(f"GPU and CPU {name} differ")
-    for name in ("boxes", "scores", "masks"):
+    for name in ("boxes", "scores", "heatmaps" if keypoint else "masks"):
         got, want = getattr(det0, name).cpu(), getattr(ref, name)
         err = float((got - want).abs().max())
-        print(f"[predict] GPU vs CPU {name}: max abs {err:.3e}")
+        print(f"[{tag}] GPU vs CPU {name}: max abs {err:.3e}")
         if not err <= SLICE_TOL * max(1.0, float(want.abs().max())):
             fail(f"GPU and CPU {name} differ by {err}")
+    if keypoint:
+        keypoints_card_vs_cpu(det0, ref)
     return launches, capture.calls
+
+
+def keypoints_card_vs_cpu(det, ref):
+    """Decode request 0's keypoints from the card's and the CPU's heatmaps:
+    each within ``SLICE_TOL`` of its box's size, except where the two pick
+    different bins, which may happen only at a tie: the CPU heatmap's value
+    at the card's bin within ``SLICE_TOL`` of max(1, max |heatmap|) of its
+    maximum."""
+    valid = ref.valid[0].numpy()
+    boxes = ref.boxes[0].numpy()[valid]
+    heat_cpu = ref.heatmaps[0].numpy()[valid]
+    heat_card = det.heatmaps[0].cpu().numpy()[valid]
+    ones = np.ones(len(boxes), bool)
+    got = decode_keypoints(det.boxes[0].cpu().numpy()[valid], heat_card, ones)
+    want = decode_keypoints(boxes, heat_cpu, ones)
+    size = np.maximum(boxes[:, 2] - boxes[:, 0], boxes[:, 3] - boxes[:, 1])
+    off = np.abs(got[..., :2] - want[..., :2]).max(axis=2) / size[:, None]
+    s, k = heat_cpu.shape[1], heat_cpu.shape[3]
+    flat_cpu = heat_cpu.reshape(len(boxes), s * s, k)
+    card_bin = heat_card.reshape(len(boxes), s * s, k).argmax(axis=1)
+    at_card = np.take_along_axis(flat_cpu, card_bin[:, None], 1)[:, 0]
+    gap = flat_cpu.max(axis=1) - at_card
+    tol = SLICE_TOL * max(1.0, float(np.abs(heat_cpu).max()))
+    ties = (off > SLICE_TOL) & (gap <= tol)
+    print(f"[kp-predict] GPU vs CPU decoded keypoints of {len(boxes)} "
+          f"detections: worst {float(off.max(initial=0)):.3e} of the box size; "
+          f"{int(ties.sum())} of {off.size} at a heatmap tie")
+    if ((off > SLICE_TOL) & ~ties).any():
+        fail("GPU and CPU decoded keypoints differ away from a heatmap tie")
 
 
 def snapshot(model) -> dict:
     return {k: v.detach().clone() for k, v in model.named_parameters()}
 
 
-def phase_train(n_steps: int, seed: int, settings=None):
+def phase_train(n_steps: int, seed: int, settings=None, preset: str = "fpn_mask"):
     """Take optimizer steps through the port's train step on the card; with
     ``settings`` (model config fields) in that configuration."""
-    cfg = cfg_lib._rep(predict_config("fpn_mask", 2, 800, 1024),
+    cfg = cfg_lib._rep(predict_config(preset, 2, 800, 1024),
                        model=settings or {})
-    tag = "train" if settings is None else "bf16-train"
+    keypoint = preset == "fpn_keypoint"
+    tag = "kp-train" if keypoint else (
+        "train" if settings is None else "bf16-train")
     t0 = time.perf_counter()
     state = create_train_state(cfg, MaskRCNN(cfg, seed=seed), seed)
     step = make_train_step(cfg)
     data = SyntheticDetectionData(cfg, seed=seed)
     batches = [data.batch(i) for i in range(n_steps + 1)]
-    print(f"[{tag}] fpn_mask 800x1024 b2 {cfg.model.dtype}, freeze_bn "
+    print(f"[{tag}] {preset} 800x1024 b2 {cfg.model.dtype}, freeze_bn "
           f"{cfg.model.freeze_bn}, {cfg.model.n_fg_class} classes, "
           f"{cfg.proposals.n_train_pre_nms}/{cfg.proposals.n_train_post_nms} "
           f"proposals, {cfg.sampler.n_sample} sampled ROIs per image; model "
@@ -639,11 +714,13 @@ def phase_train(n_steps: int, seed: int, settings=None):
         if not all(np.isfinite(v) for v in m.values()):
             fail(f"non-finite loss at step {i + 1}: {m}")
     after = snapshot(state.model)
-    still = [k for k in before if torch.equal(before[k], after[k])]
+    unseen = SOFTMAX_UNSEEN if keypoint else ()
+    still = [k for k in before if torch.equal(before[k], after[k])
+             and k not in unseen]
     bn = "extractor.resnet.bn1.weight"
     print(f"[{tag}] {len(before) - len(still)} of {len(before)} parameter "
-          f"tensors moved; {bn} by "
-          f"{float((after[bn] - before[bn]).abs().max()):.3e}")
+          f"tensors moved{f' ({unseen} by rounding noise, if at all)' if keypoint else ''}; "
+          f"{bn} by {float((after[bn] - before[bn]).abs().max()):.3e}")
     if still or state.step != n_steps + 1:
         fail(f"parameters that did not move: {still[:5]}; step {state.step}")
     if not cfg.model.freeze_bn:
@@ -665,12 +742,16 @@ def running_statistics(model) -> dict:
             if k.endswith(("running_mean", "running_var"))}
 
 
-def phase_train_gpu_vs_cpu(seed: int):
+def phase_train_gpu_vs_cpu(seed: int, preset: str = "fpn_mask"):
     """One train step from the same weights, batch and sampler draws on the
-    card and on the CPU: full widths and 80 classes on a 256×320 canvas
-    with 1000/256 proposals, so the CPU step stays short."""
-    cfg = cfg_lib._rep(predict_config("fpn_mask", 2, 256, 320),
+    card and on the CPU: full widths (80 classes for the mask head) on a
+    256×320 canvas with 1000/256 proposals, so the CPU step stays short.
+    The keypoint head's two biases that its softmax cannot see
+    (``SOFTMAX_UNSEEN``) move by rounding noise on both sides: each such
+    update must stay below a millionth of the step's largest instead."""
+    cfg = cfg_lib._rep(predict_config(preset, 2, 256, 320),
                        proposals=dict(n_train_pre_nms=1000, n_train_post_nms=256))
+    tag = "kp-train" if preset == "fpn_keypoint" else "train"
     batch = SyntheticDetectionData(cfg, seed=seed).batch(0)
     gen = torch.Generator().manual_seed(seed)
     n_anchor = 3 * sum(h * w for h, w in pyramid_shapes(cfg, (256, 320)))
@@ -686,10 +767,12 @@ def phase_train_gpu_vs_cpu(seed: int):
         metrics = {k: float(v) for k, v in step(state, batch, draws).items()}
         update = {k: (v - before[k]).cpu() for k, v in snapshot(state.model).items()}
         runs[device] = metrics, update
-        print(f"[train] 256x320 b2 step on {device} in "
+        print(f"[{tag}] 256x320 b2 step on {device} in "
               f"{time.perf_counter() - t0:.1f} s: " + ", ".join(
                   f"{k} {v:.6f}" for k, v in metrics.items()))
     (got, got_up), (want, want_up) = runs["cuda"], runs["cpu"]
+    unseen = ({k: (got_up.pop(k), want_up.pop(k)) for k in SOFTMAX_UNSEEN}
+              if preset == "fpn_keypoint" else {})
     if (got["n_valid_rois"], got["n_pos_rois"]) != (want["n_valid_rois"],
                                                     want["n_pos_rois"]):
         fail("GPU and CPU sampled different ROI counts")
@@ -697,9 +780,14 @@ def phase_train_gpu_vs_cpu(seed: int):
         if not abs(got[name] - w) <= TRAIN_LOSS_TOL * max(abs(w), 1e-30):
             fail(f"GPU and CPU {name} differ: {got[name]} vs {w}")
     largest = max(float(u.abs().max()) for u in want_up.values())
+    for k, pair in unseen.items():
+        noise = max(float(u.abs().max()) for u in pair)
+        print(f"[{tag}] {k}: update {noise:.3e} on card or CPU (rounding noise)")
+        if not noise <= 1e-6 * largest:
+            fail(f"{k} moved by {noise}: its softmax should not see it")
     worst = max(want_up, key=lambda k: float((got_up[k] - want_up[k]).abs().max()))
     err = float((got_up[worst] - want_up[worst]).abs().max())
-    print(f"[train] GPU vs CPU parameter update: worst tensor {worst}, max abs "
+    print(f"[{tag}] GPU vs CPU parameter update: worst tensor {worst}, max abs "
           f"{err:.3e} = {err / largest:.3e} of the largest update {largest:.3e}")
     if not err <= TRAIN_UPDATE_TOL * largest:
         fail(f"GPU and CPU updates differ by {err / largest} of the largest")
@@ -709,7 +797,7 @@ def phase_train_gpu_vs_cpu(seed: int):
                    - 2 * eps * float(before[k].abs().max()), 0.0)
             / max(own[k], 1e-30) for k, u in want_up.items()}
     worst = max(over, key=over.get)
-    print(f"[train] GPU vs CPU, each tensor against its own update: worst "
+    print(f"[{tag}] GPU vs CPU, each tensor against its own update: worst "
           f"{worst}, {over[worst]:.3e} of its largest update {own[worst]:.3e}")
     if not over[worst] <= TRAIN_OWN_TOL:
         fail(f"GPU and CPU updates of {worst} differ by {over[worst]} of its own")
@@ -994,6 +1082,229 @@ def phase_cli(seed: int):
     return {k: sum(v[k] for v in launches.values()) for k in want["run"]}
 
 
+class ShapeLaunches:
+    """Wraps a factory of per-image-size functions (``make_train_step``,
+    ``make_predict_fn``): every function it builds adds its calls' kernel
+    launches to ``counts["<kind> HxW"]``. With ``capture`` set to an image
+    size, the first call at that size keeps copies of its kernel inputs (2
+    ROIAlign forwards, 1 region scatter, 2 products) in ``calls``."""
+
+    def __init__(self, factory, kind: str, counts: dict, capture=None):
+        self.factory, self.kind, self.counts = factory, kind, counts
+        self.capture, self.calls = capture, None
+
+    def __call__(self, *args, image_size=None, **kwargs):
+        fn = self.factory(*args, image_size=image_size, **kwargs)
+        hw = tuple(image_size or args[0].train.image_size)
+        key = f"{self.kind} {hw[0]}x{hw[1]}"
+
+        def counted(*a, **k):
+            capturing = hw == self.capture and self.calls is None
+            if capturing:
+                fwd, bwd = Capture(ROI_ALIGN, 2), Capture(SCATTER, 1)
+                products = Capture(roi_align_ops._d_regions, 2)
+                saved = (roi_align_ops.roi_align_fwd, roi_align_ops.region_scatter,
+                         roi_align_ops._d_regions)
+                (roi_align_ops.roi_align_fwd, roi_align_ops.region_scatter,
+                 roi_align_ops._d_regions) = fwd, bwd, products
+            before = read_launches()
+            try:
+                out = fn(*a, **k)
+            finally:
+                if capturing:
+                    (roi_align_ops.roi_align_fwd, roi_align_ops.region_scatter,
+                     roi_align_ops._d_regions) = saved
+                    self.calls = (fwd.calls, bwd.calls, products.calls)
+            after = read_launches()
+            total = self.counts.setdefault(key, dict.fromkeys(after, 0))
+            for name in after:
+                total[name] += after[name] - before[name]
+            return out
+
+        return counted
+
+
+def coco_run(tmp: Path, coco_root: str, preset: str, iterations: int,
+             resume_from: int | None, extra: list, counts: dict):
+    """``cli.train --dataset coco --buckets`` (an evaluation at the last
+    step), optionally the same run resumed from a middle checkpoint, and
+    ``cli.evaluate --dump-results`` on the last checkpoint, with the kernel
+    launches of every step and predict counted by image size → (log rows of
+    the runs, the evaluate report, the results file, the masks the export
+    pasted, the portrait step's kernel inputs)."""
+    data = ["--dataset", "coco", "--coco-root", coco_root, "--coco-split", "val",
+            "--buckets", COCO_BUCKETS, "--preset", preset, "--seed", "0",
+            *extra]  # the presets' batch of 2
+    portrait = tuple(int(v) for v in COCO_BUCKETS.split(",")[1].split("x"))
+    steps = ShapeLaunches(step_mod.make_train_step, f"{preset} train", counts,
+                          capture=portrait)
+    predicts = ShapeLaunches(make_predict_fn, f"{preset} predict", counts)
+    pasted = []
+
+    def paste_spy(*args, **kwargs):
+        out = paste_masks(*args, **kwargs)
+        pasted.append(out.cpu().numpy())
+        return out
+
+    saved = (step_mod.make_train_step, evaluator.make_predict_fn,
+             export_mod.paste_masks)
+    step_mod.make_train_step = steps
+    evaluator.make_predict_fn = predicts  # the evaluators' and the exports'
+    export_mod.paste_masks = paste_spy
+    try:
+        train = [*data, "--iterations", str(iterations), "--log-every", "1",
+                 "--eval-every", str(iterations), "--eval-batches", "2",
+                 "--eval-split", "val"]
+        train_cli.main(["--out", str(tmp / "a"), "--snapshot-every",
+                        str(resume_from or iterations), *train])
+        rows = {"a": [json.loads(line) for line in open(tmp / "a" / "log.jsonl")]}
+        if resume_from:
+            (tmp / "b" / "checkpoints").mkdir(parents=True)
+            shutil.copy(tmp / "a" / "checkpoints" / f"step_{resume_from:08d}.pt",
+                        tmp / "b" / "checkpoints")
+            train_cli.main(["--out", str(tmp / "b"), "--resume", *train])
+            rows["b"] = [json.loads(line) for line in open(tmp / "b" / "log.jsonl")]
+        report = evaluate_cli.main([
+            *data, "--n-batches", "2", "--dump-results", str(tmp / "results.json"),
+            "--weight", str(tmp / "a" / "checkpoints" / f"step_{iterations:08d}.pt")])
+    finally:
+        (step_mod.make_train_step, evaluator.make_predict_fn,
+         export_mod.paste_masks) = saved
+    with open(tmp / "results.json") as f:
+        results = json.load(f)
+    return rows, report, results, pasted, steps.calls
+
+
+def check_in_run_report(rows, report, tag: str):
+    val = [r for r in rows if any(k.startswith("validation/") for k in r)]
+    in_run = {k[len("validation/main/"):]: v for k, v in val[0].items()
+              if k.startswith("validation/main/")}
+    if report.keys() != in_run.keys():
+        fail(f"{tag}: cli.evaluate report keys differ from the in-run report's")
+    err = max(abs(report[k] - in_run[k]) for k in report)
+    if err > CLI_REPORT_TOL:
+        fail(f"{tag}: cli.evaluate differs from the in-run report by {err}")
+    return err
+
+
+def check_results(results, instances: dict, tag: str, keypoint: bool, pasted):
+    """Every entry in its image's original coordinates and under the file's
+    category ids; every ``segm`` decodes to the mask the export pasted."""
+    images = {im["id"]: im for im in instances["images"]}
+    cats = {c["id"] for c in instances["categories"]}
+    if not results or {e["image_id"] for e in results} != set(images):
+        fail(f"{tag}: the results cover images "
+             f"{sorted({e['image_id'] for e in results})}, not {sorted(images)}")
+    masks = iter(m for per_image in pasted for m in per_image)
+    for e in results:
+        im = images[e["image_id"]]
+        x, y, w, h = e["bbox"]
+        if not (x >= -0.01 and y >= -0.01 and x + w <= im["width"] + 0.5
+                and y + h <= im["height"] + 0.5):
+            fail(f"{tag}: box {e['bbox']} outside image {im}")
+        if keypoint:
+            if e["category_id"] != 1 or len(e["keypoints"]) != 51:
+                fail(f"{tag}: keypoint entry {e['category_id']}, "
+                     f"{len(e['keypoints'])} numbers")
+            continue
+        if e["category_id"] not in cats:
+            fail(f"{tag}: category id {e['category_id']} not in the file")
+        got = coco_mod.rle_decode(e["segmentation"])
+        want = next(masks)
+        if got.shape != (im["height"], im["width"]) or not np.array_equal(got, want):
+            fail(f"{tag}: a segm does not decode to the mask the export pasted")
+
+
+def phase_coco_cli(seed: int):
+    """COCO-format data through the CLIs, in a temporary directory: a
+    directory written from a seed (PNG images, landscape and portrait, all
+    three mask forms, a crowd annotation, sparse category ids, people with
+    keypoints), ``fpn_mask`` (the file's 3 categories) trained 4 steps at
+    the buckets 256x320 and 320x256 with an evaluation at 4, resumed from
+    step 2, then ``cli.evaluate --dump-results``; ``fpn_keypoint`` trained 2
+    steps, evaluated and dumped the same way. Launches by path and bucket
+    shape; B2 and B1 must run at both shapes."""
+    tmp = Path(tempfile.mkdtemp(prefix="chip_smoke_coco_"))
+    counts = {}
+    t0 = time.perf_counter()
+    try:
+        instances = write_coco(str(tmp / "coco"), "val", COCO_SIZES, seed=seed)
+        with open(tmp / "coco" / "annotations" / "person_keypoints_val.json") as f:
+            people = json.load(f)
+        print(f"[coco] {len(COCO_SIZES)} images, "
+              f"{len(instances['annotations'])} instance and "
+              f"{len(people['annotations'])} person annotations, categories "
+              f"{[c['id'] for c in instances['categories']]}; native decoder "
+              f"{'loaded' if coco_native.available() else 'absent: numpy and cv2'}")
+        (tmp / "mask").mkdir()
+        rows, report, results, pasted, calls = coco_run(
+            tmp / "mask", str(tmp / "coco"), "fpn_mask", 4, 2,
+            ["--set", "model.n_fg_class=3"], counts)
+        err = check_in_run_report(rows["a"], report, "coco fpn_mask")
+        steps = {d: {r["iteration"]: r for r in rs if "main/loss" in r}
+                 for d, rs in rows.items()}
+        worst = max(abs(steps["b"][it][k] - v) / max(abs(v), 1e-30)
+                    for it in (3, 4) for k, v in steps["a"][it].items()
+                    if k.endswith("loss"))
+        if worst > CLI_LOSS_TOL:
+            fail(f"coco: resumed losses differ by {worst} relative")
+        check_results(results, instances, "coco fpn_mask", False, pasted)
+        print(f"[coco] fpn_mask: resumed steps 3-4 within {worst:.3e}; "
+              f"cli.evaluate equal to the in-run report within {err:.1e} "
+              f"(map {report['map']:.4f}); {len(results)} segm results, each "
+              f"decoding to the pasted mask, in original coordinates; padding "
+              f"waste {steps['a'][4]['main/padding_waste']:.3f}")
+        (tmp / "kp").mkdir()
+        rows, report, results, _, _ = coco_run(
+            tmp / "kp", str(tmp / "coco"), "fpn_keypoint", 2, None, [], counts)
+        check_in_run_report(rows["a"], report, "coco fpn_keypoint")
+        check_results(results, people, "coco fpn_keypoint", True, [])
+        print(f"[coco] fpn_keypoint: cli.evaluate equal to the in-run report "
+              f"(ap {report['ap']:.4f}); {len(results)} keypoint results of "
+              f"17 x 3")
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    secs = time.perf_counter() - t0
+    print(f"[coco] launches by path and bucket shape: {json.dumps(counts)}; "
+          f"{secs:.1f} s for the phase")
+    for preset in ("fpn_mask", "fpn_keypoint"):
+        for shape in COCO_BUCKETS.split(","):
+            train = counts.get(f"{preset} train {shape}", {})
+            pred = counts.get(f"{preset} predict {shape}", {})
+            if not (train.get(ROI_ALIGN.name) and train.get(SCATTER.name)
+                    and pred.get(ROI_ALIGN.name)):
+                fail(f"coco {preset} at {shape}: launches train {train}, "
+                     f"predict {pred}")
+    total = {name: sum(c[name] for c in counts.values()) for name in read_launches()}
+    return total, counts, calls
+
+
+def phase_kp_eval(n_batches: int, seed: int):
+    """OKS evaluation of the keypoint serving model (800×1024 b1, spread
+    class scores) over ``n_batches`` synthetic batches, launch counters
+    around it (2 ROIAlign forwards a batch)."""
+    cfg = predict_config("fpn_keypoint", 1, 800, 1024)
+    model = spread_class_scores(MaskRCNN(cfg, seed=seed))
+    data = SyntheticDetectionData(cfg, seed=seed)
+    evaluator.evaluate_keypoint_dataset(cfg, model, iter(data), 1)  # warm-up
+    torch.cuda.synchronize()
+    reset_launches()
+    t0 = time.perf_counter()
+    report = evaluator.evaluate_keypoint_dataset(cfg, model, iter(data), n_batches)
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    launches = read_launches()
+    print(f"[kp-eval] launches over {n_batches} batches: {launches}; report "
+          f"{report}; {secs:.3f} s for {n_batches} images, "
+          f"{secs / n_batches:.3f} s an image; {card_name_and_power_limit()}")
+    if launches != {"roi_align_fwd": 2 * n_batches, "region_scatter": 0}:
+        fail(f"expected 2 forward launches per evaluated batch, got {launches}")
+    if set(report) != {"ap", "ap50", "ap75"} or not all(
+            0.0 <= v <= 1.0 for v in report.values()):
+        fail(f"keypoint eval report {report}")
+    return launches
+
+
 def time_calls(kernel, plain, bound, calls, label: str) -> dict:
     """Hold ``kernel`` against ``plain`` on each of ``calls`` (a path's own
     inputs) and time both → sums over the calls."""
@@ -1084,7 +1395,10 @@ def scatter_kernels_per_call(paths: dict) -> dict:
     """Device kernels one region-scatter call runs, in each (input,
     accumulator) pair, on the train paths' own windows: the ROI bounds, the
     rank of every window row, the row pointers and the scatter."""
-    by_dtype = {v[2][0][0].dtype: v[2][0] for v in paths.values() if v[2]}
+    by_dtype = {}  # the first path's windows in each dtype
+    for v in paths.values():
+        if v[2]:
+            by_dtype.setdefault(v[2][0][0].dtype, v[2][0])
     device_kernels(lambda: SCATTER(*by_dtype[F32]))  # the first trace drops
     #   its first kernel
     counts = {}
@@ -1202,7 +1516,17 @@ def main(argv=None):
     phase_bf16_gpu_vs_cpu(args.seed)
     paths["eval"] = (phase_eval(N_EVAL_BATCHES, args.seed), [], [], [])
     paths["cli"] = (phase_cli(args.seed), [], [], [])
+    launches, calls = phase_predict(N_REQUESTS, args.seed, preset="fpn_keypoint")
+    paths["kp_predict"] = (launches, calls, [], [])
+    paths["kp_train"] = phase_train(N_TRAIN_STEPS, args.seed, preset="fpn_keypoint")
+    phase_train_gpu_vs_cpu(args.seed, preset="fpn_keypoint")
+    paths["kp_eval"] = (phase_kp_eval(N_KP_EVAL_BATCHES, args.seed), [], [], [])
+    launches, by_shape, (fwd_calls, bwd_calls, product_calls) = phase_coco_cli(args.seed)
+    paths["coco_portrait"] = (launches, fwd_calls, bwd_calls, product_calls)
     entries = phase_kernels_line(paths)
+    for entry in entries:
+        entry["coco_launches_by_shape"] = {k: v[entry["name"]]
+                                           for k, v in by_shape.items()}
     if args.against:
         time_against(args.against, {path: v[1] for path, v in paths.items()})
     torch.cuda.synchronize()

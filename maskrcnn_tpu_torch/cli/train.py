@@ -4,20 +4,32 @@
         [--iterations N] [--batch-size B] [--image-size HxW] [--lr LR] \\
         [--resume | --weight CKPT] [--snapshot-every N] [--log-every N] \\
         [--eval-every N --eval-batches N] [--label-file F] [--seed S] \\
-        [--set SECTION.KEY=VALUE ...] [--device cuda|cpu]
+        [--dataset synthetic|coco --coco-root DIR --coco-split S \\
+         --eval-split S --category-filter A,B --buckets HxW,HxW \\
+         --loader-workers N] [--set SECTION.KEY=VALUE ...] [--device cuda|cpu]
 
-Trains on the step-pure synthetic stream (``SyntheticDetectionData``,
-``--seed``) on the GPU unless ``--device cpu``. Writes ``<out>/args.json``
+Trains the preset's head (the mask head of ``fpn_mask``, the keypoint head
+of ``fpn_keypoint``) on the GPU unless ``--device cpu``, from the step-pure
+synthetic stream (``SyntheticDetectionData``, ``--seed``) or a COCO-format
+directory (``--dataset coco``: ``<root>/annotations/instances_<split>.json``
+or ``person_keypoints_<split>.json`` for the keypoint head, images under
+``<root>/<split>/``). ``--buckets`` sets ``train.image_buckets``: each COCO
+image goes to the bucket that pads it least, and the run keeps one step
+and one predict per bucket shape. Writes ``<out>/args.json``
 (the flags and the effective config), ``<out>/log.jsonl`` (``main/*`` rows
 every ``--log-every`` steps, ``validation/main/*`` rows from the in-run
 evaluator) and full-state checkpoints ``<out>/checkpoints/step_<8 digits>.pt``
 every ``--snapshot-every`` steps and at the end. ``--resume`` restarts from
 the latest checkpoint exactly: the stream seeks to its step. The in-run
-evaluator reads a held-out stream, seed ``--seed + 999``.
+evaluator (mask AP, or OKS keypoint AP for the keypoint head) reads a
+held-out stream, seed ``--seed + 999``: synthetic, or for COCO a loader
+without flips on ``--eval-split`` (default: the training split).
 
 The class names come from ``--label-file`` (default ``data/label_coco.txt``,
-80 classes) and set ``model.n_fg_class``; ``--set`` is applied after them,
-so ``--set model.n_fg_class=3`` trains 3 classes (with numbered names).
+80 classes, except for the keypoint head, which keeps its preset's class)
+and set ``model.n_fg_class``; ``--set`` is applied after them, so ``--set
+model.n_fg_class=3`` trains 3 classes (with the COCO file's category names
+when it has that many, else numbered names).
 
 Mid-run control channel: write JSON to ``<out>/commands.json``; it is read
 at the next logging boundary and renamed to ``commands.json.done``. Keys:
@@ -36,13 +48,11 @@ import time
 # options of the JAX CLI that the port does not have yet, and the ROADMAP
 # item that brings each
 UNPORTED = {
-    "buckets": "A.2 (multi-bucket padding comes with the COCO loader)",
     "data_parallel": "A.5 (data parallelism)",
     "pretrained_npz": "A.6 (weight import from chainer npz)",
     "steps_per_dispatch": "A.7 (chained dispatch is TPU plumbing; CUDA graphs are its analogue)",
 }
-UNPORTED_DATASETS = {"coco": "A.2 (the COCO loader)",
-                     "depth": "A.4 (the depth keypoint data)"}
+UNPORTED_DATASETS = {"depth": "A.4 (the depth keypoint data)"}
 # the non-finite-loss trap reads the loss once every this many steps, so the
 # host does not wait for the device on every step
 TRAP_EVERY = 20
@@ -54,7 +64,8 @@ def parse_args(argv=None):
     p = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     p.add_argument("--preset", default="fpn_mask",
                    help="a preset of maskrcnn_tpu_torch/config.py with the "
-                        "FPN backbone and mask head")
+                        "FPN backbone and the mask head (fpn_mask) or the "
+                        "keypoint head (fpn_keypoint)")
     p.add_argument("--out", default="result", help="output directory")
     p.add_argument("--iterations", type=int, default=None)
     p.add_argument("--lr", type=float, default=None)
@@ -72,23 +83,71 @@ def parse_args(argv=None):
     p.add_argument("--eval-batches", type=int, default=8)
     p.add_argument("--dataset", default="synthetic",
                    choices=["synthetic", "coco", "depth"])
+    p.add_argument("--coco-root", default=None,
+                   help="COCO-format directory (--dataset coco)")
+    p.add_argument("--coco-split", default="train2014")
+    p.add_argument("--eval-split", default=None,
+                   help="COCO split of the in-run evaluation (default: a "
+                        "separate loader on the training split, which "
+                        "measures training-set fit)")
+    p.add_argument("--category-filter", default=None,
+                   help="comma-separated COCO category names: keep the "
+                        "images holding any of them")
+    p.add_argument("--buckets", default=None,
+                   help="comma-separated HxW static padding buckets, e.g. "
+                        "800x1024,1024x800 (train.image_buckets)")
+    p.add_argument("--loader-workers", type=int, default=1,
+                   help="COCO decode threads per batch")
     p.add_argument("--label-file", default=None,
                    help="class names, one per line; sets model.n_fg_class "
-                        "(default: data/label_coco.txt)")
+                        "(default: data/label_coco.txt, none for the "
+                        "keypoint head)")
     p.add_argument("--seed", type=int, default=0)
     p.add_argument("--set", action="append", default=[], metavar="SEC.KEY=V",
                    help="config override, applied last, e.g. --set "
                         "model.freeze_bn=False")
     p.add_argument("--device", default=None,
                    help="torch device (default: the GPU; cpu on purpose)")
-    p.add_argument("--buckets", default=None, help="not ported yet")
     p.add_argument("--data-parallel", action="store_true", help="not ported yet")
     p.add_argument("--pretrained-npz", default=None, help="not ported yet")
     p.add_argument("--steps-per-dispatch", type=int, default=None,
                    help="not ported yet")
     args = p.parse_args(argv)
     reject_unported(p, args, UNPORTED)
+    check_coco_args(p, args)
     return args
+
+
+def check_coco_args(parser, args):
+    """``--dataset coco`` needs ``--coco-root``; ``--buckets`` must parse."""
+    if args.dataset == "coco" and not args.coco_root:
+        parser.error("--dataset coco needs --coco-root")
+    if args.buckets:
+        try:
+            parse_buckets(args.buckets)
+        except ValueError:
+            parser.error(f"--buckets {args.buckets!r}: expected HxW,HxW,...")
+
+
+def parse_buckets(text: str) -> tuple[tuple[int, int], ...]:
+    """'800x1024,1024x800' → ((800, 1024), (1024, 800))."""
+    buckets = []
+    for item in text.split(","):
+        h, w = item.split("x")
+        buckets.append((int(h), int(w)))
+    return tuple(buckets)
+
+
+def category_filter(text: str | None) -> list[str] | None:
+    return [s.strip() for s in text.split(",") if s.strip()] if text else None
+
+
+def coco_label_names(names, loader, cfg):
+    """The class names of a COCO run: the label file's, else the annotation
+    file's categories when there are ``n_fg_class`` of them, else None."""
+    if names is None and len(loader.index.label_names) == cfg.model.n_fg_class:
+        return loader.index.label_names
+    return names
 
 
 
@@ -107,14 +166,16 @@ def reject_unported(parser, args, options: dict):
 def build_config(preset: str, label_file: str | None, overrides: list[str],
                  train: dict | None = None):
     """(config, class names): the preset, the flag shortcuts in ``train``,
-    the label file (default the COCO names) as ``model.n_fg_class``, then
-    ``--set``. Names that no longer match ``n_fg_class`` are dropped."""
+    the label file (default the COCO names, none for the keypoint head) as
+    ``model.n_fg_class``, then ``--set``. Names that no longer match
+    ``n_fg_class`` are dropped."""
     from maskrcnn_tpu_torch import config as cfg_lib
 
     cfg = cfg_lib.PRESETS[preset]()
     if train:
         cfg = cfg_lib._rep(cfg, train=train)
-    if label_file is None and os.path.exists(DEFAULT_LABELS):
+    keypoint = cfg_lib.apply_overrides(cfg, overrides).model.head == "fpn_keypoint"
+    if label_file is None and not keypoint and os.path.exists(DEFAULT_LABELS):
         label_file = DEFAULT_LABELS
     names = None
     if label_file:
@@ -149,9 +210,13 @@ def main(argv=None):
     import numpy as np
     import torch
 
+    from maskrcnn_tpu_torch import config as cfg_lib
     from maskrcnn_tpu_torch.data.prefetch import Prefetcher
     from maskrcnn_tpu_torch.data.synthetic import SyntheticDetectionData
-    from maskrcnn_tpu_torch.eval.evaluator import evaluate_dataset
+    from maskrcnn_tpu_torch.eval.evaluator import (
+        evaluate_dataset,
+        evaluate_keypoint_dataset,
+    )
     from maskrcnn_tpu_torch.models.maskrcnn import MaskRCNN
     from maskrcnn_tpu_torch.train.checkpoint import (
         latest_checkpoint,
@@ -172,9 +237,22 @@ def main(argv=None):
         train_over["batch_size"] = args.batch_size
     if args.image_size:
         train_over["image_size"] = tuple(int(v) for v in args.image_size.split("x"))
+    if args.buckets:
+        train_over["image_buckets"] = parse_buckets(args.buckets)
     cfg, label_names = build_config(args.preset, args.label_file, args.set,
                                     train_over)
-    data = SyntheticDetectionData(cfg, seed=args.seed)
+    filt = category_filter(args.category_filter)
+    if args.dataset == "coco":
+        from maskrcnn_tpu_torch.data.coco import COCODetectionLoader
+
+        data = COCODetectionLoader(args.coco_root, args.coco_split, cfg,
+                                   seed=args.seed, category_filter=filt)
+        # the LR decays by epochs of this dataset
+        cfg = cfg_lib._rep(cfg, train=dict(epoch_size=len(data)))
+        label_names = coco_label_names(label_names, data, cfg)
+    else:
+        data = SyntheticDetectionData(cfg, seed=args.seed)
+    keypoint = cfg.model.head == "fpn_keypoint"
 
     os.makedirs(args.out, exist_ok=True)
     with open(os.path.join(args.out, "args.json"), "w") as f:
@@ -196,8 +274,18 @@ def main(argv=None):
     start = state.step
 
     # step-pure stream, prepared on a thread while the device steps
-    batches = Prefetcher(data.iter_from(start), size=2)
-    step = make_train_step(cfg)
+    if args.dataset == "coco":
+        stream = data.iter_from(start, n_workers=args.loader_workers)
+    else:
+        stream = data.iter_from(start)
+    batches = Prefetcher(stream, size=2)
+    steps = {}  # one train step per bucket shape
+
+    def step_for(hw):
+        if hw not in steps:
+            steps[hw] = make_train_step(cfg, image_size=hw)
+        return steps[hw]
+
     sched = lr_schedule(cfg)
     if cfg.train.iterations // cfg.train.lr_decay_period > 3:
         print(f"[lr] WARNING: lr decays ×{cfg.train.lr_decay_factor} every "
@@ -221,13 +309,29 @@ def main(argv=None):
 
     predict_cache = {}
 
+    def held_out():
+        """A held-out stream of its own, read from its start every time (a
+        loader apart from the training one, whose epoch cache the prefetch
+        thread uses)."""
+        if args.dataset == "coco":
+            if args.eval_split is None:
+                print("[eval] note: no --eval-split; evaluating a separate "
+                      "loader on the training split (training-set fit)")
+            return iter(COCODetectionLoader(
+                args.coco_root, args.eval_split or args.coco_split, cfg,
+                seed=args.seed + 999, flip=False, category_filter=filt))
+        return iter(SyntheticDetectionData(cfg, seed=args.seed + 999))
+
     def run_eval(step_i):
-        # a held-out stream of its own, read from its start every time
-        held_out = SyntheticDetectionData(cfg, seed=args.seed + 999)
         t0 = time.perf_counter()
-        rep = evaluate_dataset(cfg, state.model, iter(held_out),
-                               args.eval_batches, label_names=label_names,
-                               predict_cache=predict_cache)
+        if keypoint:
+            rep = evaluate_keypoint_dataset(cfg, state.model, held_out(),
+                                            args.eval_batches,
+                                            predict_cache=predict_cache)
+        else:
+            rep = evaluate_dataset(cfg, state.model, held_out(),
+                                   args.eval_batches, label_names=label_names,
+                                   predict_cache=predict_cache)
         secs = time.perf_counter() - t0
         n_images = args.eval_batches * cfg.train.batch_size
         print(f"[eval @{step_i}] " + " ".join(
@@ -247,7 +351,8 @@ def main(argv=None):
 
     it = start
     while it < cfg.train.iterations:
-        metrics = step(state, next(batches))
+        batch = next(batches)
+        metrics = step_for(tuple(batch.images.shape[1:3]))(state, batch)
         step_i = it + 1
         if step_i % TRAP_EVERY == 0:
             loss = float(metrics["loss"])
@@ -261,6 +366,8 @@ def main(argv=None):
             # share of batch fetches that found the prefetch queue empty
             # (near 1: the host's data preparation bounds the run)
             scalars["prefetch_starved"] = batches.starved / max(batches.served, 1)
+            if hasattr(data, "padding_waste"):
+                scalars["padding_waste"] = data.padding_waste()
             if device.type == "cuda":
                 scalars["peak_memory_gib"] = (
                     torch.cuda.max_memory_allocated(device) / 2**30)

@@ -1,12 +1,15 @@
-"""Synthetic detection data (port of ``maskrcnn_tpu/data/synthetic.py``,
-without keypoints): deterministic COCO-shaped batches.
+"""Synthetic detection data (port of ``maskrcnn_tpu/data/synthetic.py``):
+deterministic COCO-shaped batches.
 
 A dark noise canvas with 1–6 class-coloured rectangles or ellipses, with
-their exact boxes, labels and instance masks stored as fixed-size box crops.
+their exact boxes, labels and instance masks stored as fixed-size box crops,
+or, for the keypoint head, ``cfg.model.n_keypoints`` visible keypoints on a
+diagonal lattice inside each box.
 ``SyntheticDetectionData(cfg, seed).batch(i)`` draws the same numpy random
 stream as the JAX package's class of that name and returns the same arrays
 bit for bit, as a :class:`maskrcnn_tpu_torch.train.step.Batch` (images and
-mask crops uint8). ``SyntheticRequests(cfg, seed).batch(i)`` is its image
+mask crops uint8; ``gt_masks`` for the mask head, ``gt_keypoints`` for the
+keypoint head). ``SyntheticRequests(cfg, seed).batch(i)`` is its image
 part: ``images``, ``img_hw`` and ``scale`` of the same batch.
 """
 
@@ -34,6 +37,7 @@ class SyntheticDetectionData:
     def __init__(self, cfg: Config, seed: int = 0):
         self.cfg = cfg
         self.seed = seed
+        self.is_keypoint = cfg.model.head == "fpn_keypoint"
 
     def _example(self, rng: np.random.RandomState):
         cfg = self.cfg
@@ -44,6 +48,8 @@ class SyntheticDetectionData:
         labels = np.zeros((g,), np.int32)
         valid = np.zeros((g,), bool)
         masks = np.zeros((g, s, s), np.float32)
+        k = cfg.model.n_keypoints
+        kps = np.zeros((g, k, 3), np.float32)
         for i in range(rng.randint(1, min(6, g) + 1)):
             bh = rng.uniform(h * 0.15, h * 0.5)
             bw = rng.uniform(w * 0.15, w * 0.5)
@@ -84,20 +90,27 @@ class SyntheticDetectionData:
                 ).astype(np.float32)
             else:
                 masks[i] = 1.0
-        return img, boxes, labels, valid, masks
+            # keypoints: a lattice along the box's anti-diagonal, all visible
+            t = (np.arange(k) + 0.5) / k
+            kps[i, :, 0] = y0 + t * bh
+            kps[i, :, 1] = x0 + (1.0 - t) * bw
+            kps[i, :, 2] = 2.0
+        return img, boxes, labels, valid, masks, kps
 
     def batch(self, index: int) -> Batch:
         b = self.cfg.train.batch_size
         h, w = self.cfg.train.image_size
         rng = np.random.RandomState(self.seed * 100_003 + index)
-        ims, boxes, labels, valid, masks = (
+        ims, boxes, labels, valid, masks, kps = (
             np.stack(x) for x in zip(*(self._example(rng) for _ in range(b))))
         return Batch(
             images=(ims * 255.0 + 0.5).astype(np.uint8),
             img_hw=np.full((b, 2), (h, w), np.float32),
             scale=np.ones((b,), np.float32),
             gt_boxes=boxes, gt_labels=labels, gt_valid=valid,
-            gt_masks=(masks * 255.0 + 0.5).astype(np.uint8),
+            gt_masks=(None if self.is_keypoint
+                      else (masks * 255.0 + 0.5).astype(np.uint8)),
+            gt_keypoints=kps if self.is_keypoint else None,
         )
 
     def iter_from(self, step: int = 0):

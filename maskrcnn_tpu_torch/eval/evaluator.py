@@ -1,11 +1,14 @@
-"""Dataset evaluator (port of ``maskrcnn_tpu/eval/evaluator.py``): VOC mask
-mAP@0.5 with per-class ``ap/<name>``, and COCO mask AP with pycocotools
-semantics, over a stream of batches that carry GT masks.
+"""Dataset evaluators (port of ``maskrcnn_tpu/eval/evaluator.py``): VOC mask
+mAP@0.5 with per-class ``ap/<name>`` and COCO mask AP with pycocotools
+semantics over a stream of batches that carry GT masks, and OKS keypoint AP
+over batches that carry GT keypoints.
 
 Prediction and mask pasting run on the model's device; only the boolean
 masks, labels and scores go to the host, for the numpy scorers
 (:mod:`.detection_eval`, :mod:`.coco_eval`, copies of the JAX package's).
-The keypoint evaluator waits for the keypoint head (ROADMAP A.4).
+The keypoint evaluator moves each valid detection's box, score and heatmaps
+to the host and decodes and scores them there (:mod:`.keypoint_eval`, a
+copy).
 """
 
 from __future__ import annotations
@@ -16,8 +19,22 @@ import torch
 from maskrcnn_tpu_torch.config import Config
 from maskrcnn_tpu_torch.eval.coco_eval import evaluate_coco
 from maskrcnn_tpu_torch.eval.detection_eval import eval_instance_segmentation_voc
-from maskrcnn_tpu_torch.eval.postprocess import paste_masks
+from maskrcnn_tpu_torch.eval.keypoint_eval import eval_keypoints_oks_ap
+from maskrcnn_tpu_torch.eval.postprocess import decode_keypoints, paste_masks
 from maskrcnn_tpu_torch.eval.predict import make_predict_fn
+
+
+def predict_for_sizes(cfg: Config, model, predict_cache: dict | None):
+    """image size → predict function, one per bucket, kept in
+    ``predict_cache`` across calls (the evaluators' and the exports')."""
+    cache = {} if predict_cache is None else predict_cache
+
+    def predict_for(hw):
+        if hw not in cache:
+            cache[hw] = make_predict_fn(cfg, model, image_size=hw)
+        return cache[hw]
+
+    return predict_for
 
 
 def crop_to_full_mask(gt_masks_crops, gt_boxes, gt_valid, img_hw):
@@ -44,14 +61,7 @@ def evaluate_dataset(
     bucket across calls. Returns ``map`` (VOC), ``coco/*`` and
     ``ap/<name>`` for each class with GT.
     """
-    if predict_cache is None:
-        predict_cache = {}
-
-    def predict_for(hw):
-        if hw not in predict_cache:
-            predict_cache[hw] = make_predict_fn(cfg, model, image_size=hw)
-        return predict_cache[hw]
-
+    predict_for = predict_for_sizes(cfg, model, predict_cache)
     pred_masks, pred_labels, pred_scores = [], [], []
     gt_masks_all, gt_labels_all = [], []
 
@@ -96,3 +106,33 @@ def evaluate_dataset(
         if np.isfinite(voc["ap"][i]):
             report[f"ap/{name}"] = float(voc["ap"][i])
     return report
+
+
+def evaluate_keypoint_dataset(
+    cfg: Config,
+    model,
+    batches,  # iterable of Batch with gt_keypoints present
+    n_batches: int,
+    predict_cache: dict | None = None,
+) -> dict:
+    """OKS keypoint AP (``ap``, ``ap50``, ``ap75``) of the two-pass predict
+    over ``n_batches``; a ground truth's area is its box's."""
+    predict_for = predict_for_sizes(cfg, model, predict_cache)
+    pred_kps, pred_scores = [], []
+    gt_kps, gt_areas = [], []
+    for _, batch in zip(range(n_batches), batches):
+        predict = predict_for(tuple(batch.images.shape[1:3]))
+        det = predict(batch.images, batch.img_hw, batch.scale)
+        for i in range(batch.images.shape[0]):
+            valid = det.valid[i]
+            boxes = det.boxes[i][valid].cpu().numpy()
+            heat = det.heatmaps[i][valid].cpu().numpy()
+            pred_kps.append(decode_keypoints(
+                boxes, heat, np.ones(len(boxes), bool)))
+            pred_scores.append(det.scores[i][valid].cpu().numpy())
+            gv = np.asarray(batch.gt_valid[i])
+            gt_kps.append(np.asarray(batch.gt_keypoints[i])[gv])
+            gboxes = np.asarray(batch.gt_boxes[i])[gv]
+            gt_areas.append(
+                (gboxes[:, 2] - gboxes[:, 0]) * (gboxes[:, 3] - gboxes[:, 1]))
+    return eval_keypoints_oks_ap(pred_kps, pred_scores, gt_kps, gt_areas)

@@ -1,4 +1,5 @@
-"""Mask pasting (port of ``maskrcnn_tpu/eval/postprocess.py:paste_masks``).
+"""Mask pasting and keypoint decoding (port of
+``maskrcnn_tpu/eval/postprocess.py``).
 
 Each detection's S×S mask probabilities are resized to its integer box
 extent and thresholded into a full-resolution boolean canvas. The JAX
@@ -15,11 +16,13 @@ along the columns first and then the rows, as cv2 does.
 Only elementwise float32 arithmetic and gathers: a CPU and a CUDA tensor
 give the same bits. Against cv2 a pixel may differ where the interpolated
 value lies within a rounding of the threshold (``tests/test_torch_eval.py``
-counts them). ``decode_keypoints`` is not ported yet (ROADMAP A.4).
+counts them). ``decode_keypoints`` is the JAX package's numpy function,
+copied: the argmax bin of each heatmap, mapped into the box.
 """
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 
@@ -76,3 +79,28 @@ def paste_masks(det_boxes, mask_probs, valid, img_hw, threshold: float = 0.5):
             + cols.gather(1, sy1[:, :, None].expand(d, h, w)) * ay[:, :, None])
     inside = in_y[:, :, None] & in_x[:, None, :] & ~empty[:, None, None]
     return (full >= threshold) & inside
+
+
+def decode_keypoints(
+    det_boxes: np.ndarray,  # (D, 4) yxyx in the coordinates wanted out
+    heatmaps: np.ndarray,  # (D, S, S, K) logits
+    valid: np.ndarray,  # (D,) bool
+) -> np.ndarray:
+    """(D_valid, K, 3) — (y, x, score) per keypoint: the argmax bin of each
+    S×S heatmap, its centre mapped into the box; the score is the softmax
+    probability of that bin."""
+    d, s, _, k = heatmaps.shape
+    out = []
+    for i in np.where(valid)[0]:
+        y0, x0, y1, x1 = det_boxes[i]
+        bh = max(y1 - y0, 1e-3)
+        bw = max(x1 - x0, 1e-3)
+        flat = heatmaps[i].reshape(s * s, k)
+        e = np.exp(flat - flat.max(axis=0, keepdims=True))
+        prob = e / e.sum(axis=0, keepdims=True)
+        idx = flat.argmax(axis=0)  # (K,)
+        ys = (idx // s + 0.5) / s * bh + y0
+        xs = (idx % s + 0.5) / s * bw + x0
+        sc = prob[idx, np.arange(k)]
+        out.append(np.stack([ys, xs, sc], axis=1))
+    return np.stack(out) if out else np.zeros((0, k, 3), np.float32)

@@ -7,7 +7,8 @@ keeps every (ROI, class) pair above ``score_thresh`` for an exact per-class
 greedy NMS (all classes of an image in one batched call). A global
 top-``max_detections`` by score merges the classes. Pass 2 pools the
 refined boxes — at the pass-1 ROI's level under ``mask_levels="pass1"`` —
-and runs the class-gathered mask branch. Fixed shapes throughout:
+and runs the class-gathered mask branch, or the keypoint branch, whose
+56×56 heatmap logits come back as they are. Fixed shapes throughout:
 detections live in ``max_detections`` padded slots with a validity mask.
 With ``model.dtype="bfloat16"`` the convolutions and dense layers compute
 in bf16 and the pools read bf16 features; the RPN outputs, proposals, NMS,
@@ -37,8 +38,9 @@ class Detections(NamedTuple):
     scores: torch.Tensor  # (B, D)
     labels: torch.Tensor  # (B, D) int32, 0-based fg class
     valid: torch.Tensor  # (B, D) bool
-    masks: torch.Tensor | None  # (B, D, S, S) sigmoid probs
-    heatmaps: torch.Tensor | None  # keypoint heads: ROADMAP A.4, always None here
+    masks: torch.Tensor | None  # (B, D, S, S) sigmoid probs (the mask head)
+    heatmaps: torch.Tensor | None  # (B, D, 56, 56, K) float32 logits (the
+    #   keypoint head)
 
 
 def decode_boxes(cfg: Config, rois, locs, probs, rvalid, img_hw):
@@ -80,7 +82,9 @@ def merge_top(cls_boxes, cls_scores, roi_levels, keep_idx, keep_valid, d: int):
 
 def predict_masks(cfg: Config, model: MaskRCNN, features, det_boxes,
                   det_labels, det_levels):
-    """Pass 2: (B, D) detections → (B, D, 28, 28) sigmoid mask probs."""
+    """Pass 2: (B, D) detections → (masks, heatmaps): (B, D, 28, 28)
+    sigmoid mask probs and None, or None and (B, D, 56, 56, K) heatmap
+    logits for the keypoint head."""
     b, d = det_boxes.shape[:2]
     flat_boxes = det_boxes.reshape(b * d, 4)
     if cfg.eval.mask_levels == "pass1":
@@ -89,9 +93,12 @@ def predict_masks(cfg: Config, model: MaskRCNN, features, det_boxes,
         flat_levels = map_rois_to_fpn_levels(flat_boxes, 0, len(features) - 1)
     flat_bi = torch.arange(b, dtype=torch.int32,
                            device=det_boxes.device).repeat_interleave(d)
+    if cfg.model.head == "fpn_keypoint":
+        heat = model.head_mask(features, flat_boxes, flat_bi, flat_levels)
+        return None, heat.reshape(b, d, *heat.shape[1:])
     logits = model.head_mask(features, flat_boxes, flat_bi, flat_levels,
                              det_labels.reshape(b * d))
-    return torch.sigmoid(logits).reshape(b, d, *logits.shape[1:])
+    return torch.sigmoid(logits).reshape(b, d, *logits.shape[1:]), None
 
 
 def make_predict_fn(cfg: Config, model: MaskRCNN, image_size=None):
@@ -142,9 +149,9 @@ def make_predict_fn(cfg: Config, model: MaskRCNN, image_size=None):
                                   keep_idx, keep_valid, d))
         det_boxes, det_scores, det_labels, det_valid, det_levels = (
             torch.stack(t) for t in zip(*dets))
-        masks = predict_masks(cfg, model, features, det_boxes, det_labels,
-                              det_levels)
+        masks, heatmaps = predict_masks(cfg, model, features, det_boxes,
+                                        det_labels, det_levels)
         return Detections(det_boxes, det_scores, det_labels, det_valid, masks,
-                          None)
+                          heatmaps)
 
     return predict

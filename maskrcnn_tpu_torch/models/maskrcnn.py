@@ -1,5 +1,6 @@
 """MaskRCNN facade: backbone + RPN + ROI head (port of
-``maskrcnn_tpu/models/maskrcnn.py``, FPN backbone with the FPN mask head).
+``maskrcnn_tpu/models/maskrcnn.py``, FPN backbone with the FPN mask or
+keypoint head).
 
 Stages are methods — ``extract``, ``rpn``, ``pool``, ``head_box``,
 ``head_mask``, ``head_train`` — that two-pass predict and the train step
@@ -22,7 +23,7 @@ from torch import nn
 
 from maskrcnn_tpu_torch.config import Config
 from maskrcnn_tpu_torch.models.backbones.fpn import FPNBackbone
-from maskrcnn_tpu_torch.models.heads.fpn_heads import FPNMaskHead
+from maskrcnn_tpu_torch.models.heads.fpn_heads import FPNKeypointHead, FPNMaskHead
 from maskrcnn_tpu_torch.models.init import init_weights
 from maskrcnn_tpu_torch.models.layers import compute_dtype
 from maskrcnn_tpu_torch.models.rpn import RPNHead
@@ -56,6 +57,14 @@ def pyramid_shapes(cfg: Config, image_size) -> list[tuple[int, int]]:
     return [(h // 16, w // 16)]
 
 
+def build_head(cfg: Config, dtype: torch.dtype) -> nn.Module:
+    m = cfg.model
+    if m.head == "fpn":
+        return FPNMaskHead(m.n_class, m.n_mask_convs, m.fpn_channels, dtype)
+    return FPNKeypointHead(m.n_class, m.n_keypoints, m.n_mask_convs,
+                           m.fpn_channels, dtype, m.kp_upsample)
+
+
 class MaskRCNN(nn.Module):
     """``MaskRCNN(cfg, device=None, seed=0)``: built with seeded random
     weights on ``device`` (the GPU unless the caller names another)."""
@@ -63,16 +72,16 @@ class MaskRCNN(nn.Module):
     def __init__(self, cfg: Config, device=None, seed: int = 0):
         super().__init__()
         m = cfg.model
-        if m.backbone != "fpn" or m.head != "fpn":
+        if m.backbone != "fpn" or m.head not in ("fpn", "fpn_keypoint"):
             raise NotImplementedError(
                 f"backbone={m.backbone!r} head={m.head!r}: the port covers the "
-                "FPN backbone with the FPN mask head")
+                "FPN backbone with the FPN mask or keypoint head")
         dt = compute_dtype(m.dtype)
         self.acc_dtype = compute_dtype(m.roi_align_acc)
         self.cfg = cfg
         self.extractor = FPNBackbone(m.fpn_channels, m.freeze_bn, dt, m.remat)
         self.rpn_head = RPNHead(m.fpn_channels, 256, len(cfg.anchors.ratios), dt)
-        self.head = FPNMaskHead(m.n_class, m.n_mask_convs, m.fpn_channels, dt)
+        self.head = build_head(cfg, dt)
         init_weights(self, seed)
         self.eval()
         self.to(resolve_device(device), memory_format=torch.channels_last)
@@ -119,7 +128,10 @@ class MaskRCNN(nn.Module):
 
     def head_mask(self, features, rois, roi_batch_idx, roi_levels,
                   class_idx=None):
-        """Pass 2: pooled 14×14 on refined boxes → mask logits."""
+        """Pass 2: pooled 14×14 on refined boxes → mask logits, only each
+        ROI's ``class_idx`` channel when given (the mask head), or (R, 56,
+        56, K) heatmap logits (the keypoint head, which takes no
+        ``class_idx``)."""
         s = self.head.roi_size_mask
         pooled = self.pool(features, rois, roi_batch_idx, roi_levels, (s, s))
         return self.head.predict_mask(pooled, class_idx)
@@ -127,9 +139,9 @@ class MaskRCNN(nn.Module):
     def head_train(self, features, rois_bn, levels_bn, n_pos: int,
                    class_idx=None):
         """Train-path head over (B, n) ROI slots with positives FIRST: box
-        branch on every slot, mask branch on the (B, :n_pos) prefix →
-        (locs, scores, masks). Both branches pool from one shared window
-        per ROI (:func:`multilevel_roi_align_train`), whose backward is the
+        branch on every slot, mask or keypoint branch on the (B, :n_pos)
+        prefix → (locs, scores, mask logits or heatmaps). Both branches
+        pool from one shared window per ROI (:func:`multilevel_roi_align_train`), whose backward is the
         region-scatter kernel, accumulating in ``cfg.model.roi_align_acc``;
         the other ROIAlign forms have no train path."""
         sb, sm = self.head.roi_size_box, self.head.roi_size_mask

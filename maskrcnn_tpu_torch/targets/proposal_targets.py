@@ -1,5 +1,5 @@
 """Head training targets (port of ``maskrcnn_tpu/targets/proposal_targets.py``:
-``proposal_targets`` and ``mask_targets``).
+``proposal_targets``, ``mask_targets`` and ``keypoint_targets``).
 
 - GT boxes are appended to the proposals as candidates and given FPN levels;
 - IoU argmax assignment, labels shifted +1 with background 0;
@@ -7,7 +7,9 @@
   ``[0, n_pos)``, negatives (IoU in [lo, hi)) follow, the rest are invalid;
 - loc targets are ``bbox2loc`` normalized by mean/std;
 - mask targets resample each positive's GT mask crop bilinearly at the
-  ROI's cell centers and threshold at 0.5.
+  ROI's cell centers and threshold at 0.5;
+- keypoint targets are the heatmap bin of each visible keypoint of the
+  assigned GT inside the ROI's grid, or −1.
 
 The random subsets come from uniform priorities that the caller passes in
 (``pos_u``, ``neg_u``), ranked by a stable descending sort, so a test can
@@ -150,3 +152,26 @@ def mask_targets(
     bx = _axis_interp_matrix((xs - gbox[..., 1:2]) / gw * s - 0.5, s)
     interp = by @ gmask @ bx.transpose(-1, -2)
     return (interp >= 0.5).float()
+
+
+def keypoint_targets(
+    sample: ProposalTargets,
+    gt_keypoints: torch.Tensor,  # (B, G, K, 3) (y, x, v) in image coordinates
+    mask_size: int = 56,
+) -> torch.Tensor:
+    """(B, n, K) int32 bin labels in [0, mask_size²), or −1 to ignore: each
+    keypoint of the assigned GT mapped into the ROI's S×S grid, label
+    y·S + x where v == 2 and the point falls inside, else −1. The ROI's
+    coordinates and the grid position truncate toward zero, as the JAX
+    package does."""
+    kps = _take(gt_keypoints, sample.assignment).float()  # (B, n, K, 3)
+    roi = torch.trunc(sample.rois)
+    y0, x0 = roi[..., 0:1], roi[..., 1:2]
+    h = (roi[..., 2:3] - y0).clamp(min=1.0)
+    w = (roi[..., 3:4] - x0).clamp(min=1.0)
+    yy = torch.trunc((kps[..., 0] - y0) / h * mask_size).to(torch.int32)
+    xx = torch.trunc((kps[..., 1] - x0) / w * mask_size).to(torch.int32)
+    v = kps[..., 2].to(torch.int32)
+    ok = ((v == 2) & (yy >= 0) & (yy < mask_size)
+          & (xx >= 0) & (xx < mask_size))
+    return torch.where(ok, yy * mask_size + xx, torch.full_like(yy, -1))

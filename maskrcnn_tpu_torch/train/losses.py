@@ -67,6 +67,16 @@ def sigmoid_mask_loss(mask_logits, mask_targets, labels, is_pos) -> torch.Tensor
     return (ce * w).sum() / (_count(w.sum()) * ce.shape[1] * ce.shape[2])
 
 
+def keypoint_ce_loss(heat_logits, kp_labels, is_pos) -> torch.Tensor:
+    """heat_logits (N, S, S, K); kp_labels (N, K) bins in [0, S²) or −1;
+    is_pos (N,) → softmax cross-entropy over the S² bins of each keypoint,
+    averaged over the labelled keypoints of the positive samples."""
+    n, s, _, k = heat_logits.shape
+    logits = heat_logits.reshape(n, s * s, k).transpose(1, 2).reshape(n * k, s * s)
+    labels = torch.where(is_pos[:, None], kp_labels, -1).reshape(n * k)
+    return softmax_ce_ignore(logits, labels)
+
+
 class LossBreakdown(NamedTuple):
     loss: torch.Tensor
     rpn_loc_loss: torch.Tensor

@@ -3,6 +3,10 @@
     backbone → RPN → proposals (NMS on device, no gradient) → proposal and
     anchor targets → shared-pool ROI head → 5-term loss → backward → SGD.
 
+The fifth term is the mask loss of the mask head, or the keypoint heatmap
+loss of the keypoint head (``cfg.model.head == "fpn_keypoint"``), which
+reads ``gt_keypoints`` where the mask head reads ``gt_masks``.
+
 Batch size is free. ``grad_accum_steps`` splits the batch into micro-batches
 in a Python loop; the samplers' per-image draws are made for the whole batch
 first and sliced the same way, so accumulation samples exactly what the full
@@ -31,6 +35,7 @@ from maskrcnn_tpu_torch.models.rpn import anchors_for, generate_proposals
 from maskrcnn_tpu_torch.targets.anchor_targets import anchor_targets
 from maskrcnn_tpu_torch.targets.proposal_targets import (
     ProposalTargets,
+    keypoint_targets,
     mask_targets,
     proposal_targets,
 )
@@ -48,7 +53,15 @@ class Batch(NamedTuple):
     gt_boxes: torch.Tensor  # (B, G, 4)
     gt_labels: torch.Tensor  # (B, G) int32 0-based fg class
     gt_valid: torch.Tensor  # (B, G) bool
-    gt_masks: torch.Tensor  # (B, G, S, S) box-crops, uint8 or float
+    gt_masks: torch.Tensor | None = None  # (B, G, S, S) box-crops, uint8 or
+    #   float (the mask head's)
+    gt_keypoints: torch.Tensor | None = None  # (B, G, K, 3) (y, x, v) in
+    #   image coordinates (the keypoint head's)
+
+
+def _map(fn, batch: Batch) -> Batch:
+    """``fn`` applied to every field a batch carries; absent ones stay None."""
+    return Batch(*(None if x is None else fn(x) for x in batch))
 
 
 class SamplerDraws(NamedTuple):
@@ -76,6 +89,7 @@ def make_train_step(cfg: Config, image_size: tuple[int, int] | None = None):
     anchors_np = anchors_for(cfg, feat_shapes, feat_strides)
     n_levels = len(feat_shapes)
     n_pos_cap = int(round(cfg.sampler.n_sample * cfg.sampler.pos_ratio))
+    is_keypoint = cfg.model.head == "fpn_keypoint"
     accum = max(cfg.train.grad_accum_steps, 1)
     if cfg.train.batch_size % accum != 0:
         raise ValueError(f"batch_size {cfg.train.batch_size} not divisible by "
@@ -112,17 +126,23 @@ def make_train_step(cfg: Config, image_size: tuple[int, int] | None = None):
                 pos_iou_thresh=cfg.anchor_targets.pos_iou_thresh,
                 neg_iou_thresh=cfg.anchor_targets.neg_iou_thresh,
                 pos_ratio=cfg.anchor_targets.pos_ratio)
-            # only positives carry mask loss, and the sampler puts them
-            # first: the mask branch runs on the (B, :n_pos_cap) prefix
+            # only positives carry mask or keypoint loss, and the sampler
+            # puts them first: that branch runs on the (B, :n_pos_cap) prefix
             sample_pos = ProposalTargets(*(x[:, :n_pos_cap] for x in sample))
-            m_t = mask_targets(sample_pos, batch.gt_masks, batch.gt_boxes,
-                               mask_size=cfg.model.mask_size)
+            if is_keypoint:
+                targets = keypoint_targets(sample_pos, batch.gt_keypoints,
+                                           mask_size=cfg.model.mask_size)
+            else:
+                targets = mask_targets(sample_pos, batch.gt_masks,
+                                       batch.gt_boxes,
+                                       mask_size=cfg.model.mask_size)
             cls_labels = torch.where(
                 sample.valid, sample.labels, -1).reshape(-1)
             pos_flat = (sample_pos.is_pos & sample_pos.valid).reshape(-1)
 
-        # class-gathered final conv: each positive's GT-class channel only
-        class_idx = (sample_pos.labels - 1).reshape(-1)
+        # the mask head's class-gathered final conv: each positive's
+        # GT-class channel only
+        class_idx = None if is_keypoint else (sample_pos.labels - 1).reshape(-1)
         roi_cls_locs, roi_scores, roi_masks = model.head_train(
             features, sample.rois, sample.levels, n_pos_cap, class_idx)
 
@@ -138,9 +158,13 @@ def make_train_step(cfg: Config, image_size: tuple[int, int] | None = None):
             sample.locs.reshape(-1, 4), cls_labels, sigma=1.0)
         roi_cls_loss = L.softmax_ce_ignore(roi_scores, cls_labels)
         s = cfg.model.mask_size
-        mask_loss = L.sigmoid_mask_loss(
-            roi_masks, m_t.reshape(-1, s, s), sample_pos.labels.reshape(-1),
-            pos_flat)
+        if is_keypoint:
+            mask_loss = L.keypoint_ce_loss(
+                roi_masks, targets.reshape(-1, targets.shape[-1]), pos_flat)
+        else:
+            mask_loss = L.sigmoid_mask_loss(
+                roi_masks, targets.reshape(-1, s, s),
+                sample_pos.labels.reshape(-1), pos_flat)
         total = (rpn_loc_loss + rpn_cls_loss + roi_loc_loss + roi_cls_loss
                  + mask_loss)
         counts = torch.stack([sample.valid.sum(),
@@ -155,7 +179,7 @@ def make_train_step(cfg: Config, image_size: tuple[int, int] | None = None):
         if dev not in anchors_on:
             anchors_on[dev] = torch.as_tensor(anchors_np, device=dev)
         anchors = anchors_on[dev]
-        batch = Batch(*(torch.as_tensor(x, device=dev) for x in batch))
+        batch = _map(lambda x: torch.as_tensor(x, device=dev), batch)
         b = batch.images.shape[0]
         if b % accum != 0:
             raise ValueError(f"batch {b} not divisible by grad_accum_steps "
@@ -175,7 +199,7 @@ def make_train_step(cfg: Config, image_size: tuple[int, int] | None = None):
         with torch.enable_grad():
             for i in range(accum):
                 rows = slice(i * micro, (i + 1) * micro)
-                bd, cnt = loss_fn(model, Batch(*(x[rows] for x in batch)),
+                bd, cnt = loss_fn(model, _map(lambda x: x[rows], batch),
                                   SamplerDraws(*(x[rows] for x in draws)),
                                   anchors)
                 bd.loss.backward()

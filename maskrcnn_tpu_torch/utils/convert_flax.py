@@ -8,9 +8,11 @@ arrays. Module names carry over with ``Conv_k`` → ``conv{k}`` and
 - conv kernels HWIO → OIHW;
 - dense kernels (in, out) → (out, in) (``fc1``'s rows are already in the
   HWC order the port flattens in);
-- the mask head's 2×2/2 transposed conv, which the JAX module applies
-  flipped: ``W[c, o, di, dj] = K[1-di, 1-dj, c, o]``;
-- ``conv2_kernel`` (c_in, n_out) → ``conv2_weight`` (n_out, c_in);
+- the mask and keypoint heads' 2×2/2 transposed conv, which the JAX module
+  applies flipped: ``W[c, o, di, dj] = K[1-di, 1-dj, c, o]``;
+- the mask head's ``conv2_kernel`` (c_in, n_out) → ``conv2_weight`` (n_out,
+  c_in); the keypoint head's ``conv2`` is a 1×1 conv like any other
+  (``mask1``..``mask8``, ``deconv1`` and ``conv2`` under ``head/mask``);
 - BatchNorm scale/bias/mean/var → weight/bias/running_mean/running_var.
 
 A JAX leaf with no place in the port, a port tensor with no JAX leaf, or a

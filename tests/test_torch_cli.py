@@ -14,7 +14,8 @@ checkpoint, all in this process:
   exactly (a spy on the evaluator's predict records them: random weights at
   this size score 0.0 AP, so the report alone would not tell);
 - options the port does not have yet exit with the ROADMAP item that brings
-  them.
+  them (the COCO options, ported since, are held in
+  ``tests/test_torch_coco_cli.py``).
 """
 
 import json
@@ -166,14 +167,10 @@ def test_evaluate_reproduces_the_in_run_report(runs):
 
 
 @pytest.mark.parametrize("cli, argv, item", [
-    ("train", ["--dataset", "coco"], "A.2"),
     ("train", ["--dataset", "depth"], "A.4"),
-    ("train", ["--buckets", "800x1024,1024x800"], "A.2"),
     ("train", ["--data-parallel"], "A.5"),
     ("train", ["--pretrained-npz", "x.npz"], "A.6"),
     ("train", ["--steps-per-dispatch", "4"], "A.7"),
-    ("evaluate", ["--dump-results", "out.json"], "A.2"),
-    ("evaluate", ["--dataset", "coco"], "A.2"),
 ])
 def test_unported_options_exit_naming_their_roadmap_item(cli, argv, item, capsys):
     main = train_cli.parse_args if cli == "train" else eval_cli.main

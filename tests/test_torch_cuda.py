@@ -421,3 +421,87 @@ def test_paste_masks_on_the_card_equals_the_cpu(cuda, content):
         want = crop_to_full_mask(masks, boxes, valid, hw)
     assert got.device.type == "cuda" and got.shape == want.shape == (int(valid.sum()), *hw)
     assert want.any() and torch.equal(got.cpu(), want)
+
+
+def _capturing(monkeypatch):
+    """Route the shared pool's kernel calls through recorders that keep
+    copies of their arguments."""
+    from maskrcnn_tpu_torch.ops import roi_align as roi_align_ops
+
+    calls = {"fwd": [], "bwd": []}
+
+    def recorder(fn, key):
+        def wrapped(*args):
+            calls[key].append(tuple(a.clone() if isinstance(a, torch.Tensor) else a
+                                    for a in args))
+            return fn(*args)
+        return wrapped
+
+    monkeypatch.setattr(roi_align_ops, "roi_align_fwd", recorder(roi_align_fwd, "fwd"))
+    monkeypatch.setattr(roi_align_ops, "region_scatter",
+                        recorder(region_scatter, "bwd"))
+    return calls
+
+
+@pytest.mark.parametrize("preset,hw", [
+    ("fpn_keypoint", (256, 320)), ("fpn_keypoint", (320, 256)),
+    ("fpn_mask", (320, 256))])
+def test_kernels_match_plain_on_keypoint_and_portrait_paths(cuda, monkeypatch,
+                                                            preset, hw):
+    """A predict and a train step of the keypoint head (one class, the 14²
+    class-agnostic pool, its own positives) and of the portrait bucket's
+    pyramid (other row strides): 2 forward launches a request, 2 and 1
+    region scatter a step; every call's output equals its plain version
+    (ROIAlign within 1e-5 of max |plain|; the region scatter bit for bit
+    equal to ``region_scatter_ordered`` and within its exact bound)."""
+    torch.backends.cudnn.allow_tf32 = False
+    cfg = cfg_lib._rep(
+        cfg_lib.PRESETS[preset](),
+        proposals=dict(n_train_pre_nms=1000, n_train_post_nms=256,
+                       n_test_pre_nms=1000, n_test_post_nms=100),
+        train=dict(batch_size=2, image_size=hw))
+    model = MaskRCNN(cfg, device="cuda", seed=0)
+    with torch.no_grad():
+        model.head.box.score.weight.mul_(8.0)  # detections to pool
+    calls = _capturing(monkeypatch)
+    req = SyntheticRequests(cfg).batch(0)
+    det = make_predict_fn(cfg, model)(req.images, req.img_hw, req.scale)
+    assert len(calls["fwd"]) == 2 and not calls["bwd"] and int(det.valid.sum()) > 0
+    if preset == "fpn_keypoint":
+        assert det.masks is None and det.heatmaps.shape[2:] == (56, 56, 17)
+    step = make_train_step(cfg)
+    m = step(create_train_state(cfg, model), SyntheticDetectionData(cfg).batch(0))
+    assert all(bool(torch.isfinite(v)) for v in m.values())
+    assert len(calls["fwd"]) == 4 and len(calls["bwd"]) == 1
+    for args in calls["fwd"]:
+        got, want = roi_align_fwd(*args), roi_align_region_plain(*args)
+        err = float((got - want).abs().max()) / float(want.abs().max())
+        assert err <= 1e-5
+    args = calls["bwd"][0]
+    got = region_scatter(*args)
+    assert torch.equal(got, region_scatter_ordered(*args))
+    exact, bound = region_scatter_exact(*args)
+    assert bool(((got.double() - exact).abs() <= bound).all())
+    assert bool(((region_scatter_plain(*args).double() - exact).abs() <= bound).all())
+
+
+def test_keypoint_predict_on_the_card_matches_the_cpu(cuda):
+    """The keypoint head's two-pass predict at 256×320: equal valid and
+    labels, boxes, scores and heatmaps within 1e-3 of max(1, max |CPU|)."""
+    torch.backends.cudnn.allow_tf32 = False
+    cfg = cfg_lib._rep(cfg_lib.fpn_keypoint(),
+                       train=dict(batch_size=1, image_size=(256, 320)))
+    req = SyntheticRequests(cfg).batch(0)
+    dets = {}
+    for device in ("cuda", "cpu"):
+        model = MaskRCNN(cfg, device=device, seed=0)
+        with torch.no_grad():
+            model.head.box.score.weight.mul_(8.0)
+        dets[device] = make_predict_fn(cfg, model)(req.images, req.img_hw, req.scale)
+    got, want = dets["cuda"], dets["cpu"]
+    assert int(want.valid.sum()) > 0
+    assert torch.equal(got.valid.cpu(), want.valid)
+    assert torch.equal(got.labels.cpu(), want.labels)
+    for name in ("boxes", "scores", "heatmaps"):
+        g, w = getattr(got, name).cpu(), getattr(want, name)
+        assert float((g - w).abs().max()) <= 1e-3 * max(1.0, float(w.abs().max())), name

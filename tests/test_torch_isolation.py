@@ -2,9 +2,13 @@
 
 - a fresh interpreter imports every module of ``maskrcnn_tpu_torch`` and
   ``chip_smoke.py`` and finds neither ``jax`` nor ``maskrcnn_tpu`` (or a
-  submodule of it) in ``sys.modules``, nor ``cv2`` or ``PIL``, which the
-  card's machine lacks;
-- an AST scan of the same sources finds no such import;
+  submodule of it) in ``sys.modules``, nor ``cv2`` or ``PIL``: the port
+  needs no image library to import, serve or train from the synthetic
+  stream (the card's machine has both, opencv-python-headless and pillow);
+- an AST scan of the same sources finds no such import, with one named
+  exception: the COCO loader (``maskrcnn_tpu_torch/data/coco.py``) imports
+  ``cv2`` inside its functions, to decode and resize images as the JAX
+  loader does;
 - without CUDA, the entry points raise instead of running on the CPU, and
   ``chip_smoke.py`` exits non-zero without printing a result.
 """
@@ -26,8 +30,30 @@ FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "orbax", "maskrcnn_tpu",
              "cv2", "PIL")
 
 
+# (source, module): imports allowed inside that source's functions only
+ALLOWED_IN_FUNCTIONS = {("maskrcnn_tpu_torch/data/coco.py", "cv2")}
+
+
 def _forbidden(name: str) -> bool:
     return any(name == f or name.startswith(f + ".") for f in FORBIDDEN)
+
+
+def _imports(tree):
+    """(node, imported names, inside a function) for every import."""
+    out = []
+
+    def visit(node, in_function):
+        for child in ast.iter_child_nodes(node):
+            if isinstance(child, ast.Import):
+                out.append((child, [a.name for a in child.names], in_function))
+            elif isinstance(child, ast.ImportFrom):
+                names = [child.module or ""] if child.level == 0 else []
+                out.append((child, names, in_function))
+            visit(child, in_function or isinstance(
+                child, (ast.FunctionDef, ast.AsyncFunctionDef, ast.Lambda)))
+
+    visit(tree, False)
+    return out
 
 
 def _sources():
@@ -77,25 +103,41 @@ def test_importing_the_port_loads_no_jax():
     assert "maskrcnn_tpu_torch.kernels.region_scatter_cuda" in loaded
     for mod in ("eval.evaluator", "eval.postprocess", "eval.coco_eval",
                 "eval.detection_eval", "data.prefetch", "utils.metrics",
-                "train.checkpoint", "cli.train", "cli.evaluate"):
+                "train.checkpoint", "cli.train", "cli.evaluate", "data.coco",
+                "data._native", "data.keypoints", "data.coco_synthetic",
+                "eval.export", "eval.keypoint_eval"):
         assert f"maskrcnn_tpu_torch.{mod}" in loaded
     assert [m for m in loaded if _forbidden(m)] == []
 
 
 def test_port_sources_import_no_jax():
-    bad = []
+    bad, allowed = [], []
     for path in _sources():
-        for node in ast.walk(ast.parse(path.read_text(), str(path))):
-            if isinstance(node, ast.Import):
-                names = [a.name for a in node.names]
-            elif isinstance(node, ast.ImportFrom):
-                names = [node.module or ""] if node.level == 0 else []
-            else:
-                continue
-            bad += [f"{path.relative_to(ROOT)}:{node.lineno} {n}"
-                    for n in names if _forbidden(n)]
+        rel = path.relative_to(ROOT).as_posix()
+        tree = ast.parse(path.read_text(), str(path))
+        for node, names, in_function in _imports(tree):
+            for n in names:
+                if not _forbidden(n):
+                    continue
+                if in_function and (rel, n) in ALLOWED_IN_FUNCTIONS:
+                    allowed.append(f"{rel}:{node.lineno} {n}")
+                else:
+                    bad.append(f"{rel}:{node.lineno} {n}")
     assert len(_sources()) > 30
     assert bad == []
+    # the exception is used, and only where it is named
+    assert allowed and all(a.startswith("maskrcnn_tpu_torch/data/coco.py:")
+                           for a in allowed)
+
+
+def test_import_scan_sees_imports_at_every_depth():
+    tree = ast.parse("import cv2\n"
+                     "def f():\n    import cv2\n    from PIL import Image\n"
+                     "class C:\n    import jax\n"
+                     "    def g(self):\n        import cv2.data\n")
+    found = [(names, inside) for _, names, inside in _imports(tree)]
+    assert found == [(["cv2"], False), (["cv2"], True), (["PIL"], True),
+                     (["jax"], False), (["cv2.data"], True)]
 
 
 def test_entry_points_refuse_to_run_on_the_cpu_unasked():
