@@ -22,7 +22,11 @@ Phases, in order; any failure exits non-zero before the result is printed:
    ``region_scatter_ordered`` (its adds in the kernel's order) and to
    itself on a second call. ROIs lie on all five levels, many on one
    object, some with windows that run past the end of the buffer; the
-   ROIs per level and the most terms on one output row are printed;
+   ROIs per level and the most terms on one output row are printed. At
+   the C4 family's shapes too: one 50×64 level at C=1024 and at C=490
+   padded to 512, 300 request ROIs and 512 train ROIs in the pallas window
+   geometry, with how far the pallas pool lies from the gather form on
+   ROIs wider than its window;
 4. the serving path: ``fpn_mask`` at full width (ResNet-50-FPN, 80 classes,
    800×1024, batch 1, seeded random weights, class scores spread to a
    chosen load that fills every detection slot) serves synthetic requests
@@ -80,8 +84,22 @@ Phases, in order; any failure exits non-zero before the result is printed:
    original images, category ids are the file's, keypoint entries hold
    17 × 3 numbers; launches counted by path and bucket shape, and both
    kernels must run at both shapes; the first portrait step's kernel inputs
-   are kept for phase 16;
-16. the kernels line: each kernel on the inputs the main paths gave it,
+   are kept for phase 17;
+16. the C4 family, ``light_head`` (``lh``) and ``c4_res5`` (``c4``) at
+   full width (ResNet-50 to res4, 80 classes, 14×14 masks): 8 requests at
+   800×1024 b1 (6000/300 proposals, class scores spread) and one again on
+   the CPU, held as in phase 4 from the same proposals (``Proposals``: the
+   one level's tied RPN scores; the slots the card's own proposals share
+   with the CPU's are printed); 1 + 3 train steps at 800×1024 b2
+   (12000/2000 proposals, 256 ROIs an image) as in phase 5, every parameter
+   moving; one 256×320 step on the card against the CPU as in phase 6, from
+   the same proposals (``c4_res5`` with fewer sampled ROIs, printed); their
+   default pool on one level is
+   the gather form, which launches no kernel. Then ``roi_align="pallas"``:
+   one request and one step each, B2 2 a request and 2 a step, B1 2 a
+   step (the box pool and the mask pool, each its own backward); and the
+   CLIs as in phase 11 with ``--preset``;
+17. the kernels line: each kernel on the inputs the main paths gave it,
    held against its plain version, with both times, its bound (for the
    ROIAlign forward the work these inputs need, with the dense count beside
    it) and, where one PyTorch call computes the same function, that call's
@@ -136,6 +154,7 @@ from maskrcnn_tpu_torch.data.synthetic import (
 from maskrcnn_tpu_torch.eval import evaluator
 from maskrcnn_tpu_torch.eval import export as export_mod
 from maskrcnn_tpu_torch.eval.postprocess import decode_keypoints, paste_masks
+from maskrcnn_tpu_torch.eval import predict as predict_mod
 from maskrcnn_tpu_torch.eval.predict import make_predict_fn
 from maskrcnn_tpu_torch.kernels import region_scatter_cuda, roi_align_cuda
 from maskrcnn_tpu_torch.kernels.build import nvcc_path
@@ -187,6 +206,12 @@ N_KP_EVAL_BATCHES = 4  # keypoint evaluation at 800x1024 b1
 COCO_SIZES = [(240, 320), (320, 240), (256, 300), (300, 256), (224, 320),
               (320, 224), (250, 310), (310, 250)]  # landscape and portrait
 COCO_BUCKETS = "256x320,320x256"
+C4_PRESETS = {"lh": "light_head", "c4": "c4_res5"}  # tag prefix: preset
+C4_SHAPE = (50, 64)  # the C4 level of an 800x1024 image
+PALLAS = dict(roi_align="pallas")  # the presets' pools through B2 and B1
+C4_CPU_SAMPLES = {"c4_res5": 64}  # sampled ROIs an image of the card-vs-CPU
+#   step: res5 and the 2048-wide 3x3 conv run on every ROI, about 5 GFLOP a
+#   ROI forward, so the CPU's step grows with the ROIs it samples
 
 ROI_ALIGN = roi_align_cuda.roi_align_fwd
 SCATTER = region_scatter_cuda.region_scatter
@@ -530,6 +555,95 @@ def phase_region_scatter_vs_plain(seed: int) -> float:
     return worst
 
 
+def c4_rois(rng, b, hw, n):
+    """``n`` proposal-like ROIs of a b-image request on the one C4 level:
+    log-uniform sizes from 16 to 800 pixels, aspect ratios 1/3 to 3, some
+    partly off the image."""
+    h, w = hw
+    side = np.exp(rng.uniform(np.log(16), np.log(800), n))
+    ar = np.exp(rng.uniform(np.log(1 / 3), np.log(3), n))
+    bh, bw = np.minimum(side * np.sqrt(ar), h), np.minimum(side / np.sqrt(ar), w)
+    y0, x0 = rng.uniform(-8, h - bh / 2), rng.uniform(-8, w - bw / 2)
+    rois = torch.from_numpy(np.stack([y0, x0, y0 + bh, x0 + bw], 1).astype(np.float32))
+    bi = torch.from_numpy(rng.randint(0, b, n).astype(np.int32))
+    return rois, bi, torch.zeros(n, dtype=torch.int32)
+
+
+def phase_c4_kernels_vs_plain(seed: int) -> float:
+    """Both kernels against their plain versions at the C4 presets' shapes:
+    one 50×64 level (an 800×1024 image) at C=1024 (``c4_res5``) and at the
+    light head's C=490, which the port pads to 512 channels; 300 ROIs at
+    7×7 (a request, b1) and 512 train ROIs (b2) in the pallas window
+    geometry, whose pooled gradient the region scatter takes back. Also
+    how far the pallas pool (a window of 20 or 22 cells) lies from the
+    gather form on ROIs wider than its window → worst f32 error."""
+    scales = (1.0 / 16,)
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    rng = np.random.RandomState(seed + 2)
+    kernel, plain = ROI_ALIGN, roi_align_cuda.roi_align_region_plain
+    scatter_plain = region_scatter_cuda.region_scatter_plain
+    worst = 0.0
+    for c in (1024, 490):
+        for b, n, kind in ((1, 300, "request"), (2, 512, "train")):
+            feats = [torch.randn(b, *C4_SHAPE, c, device="cuda", generator=gen)]
+            rois, bi, lv = (t.cuda() for t in c4_rois(rng, b, (800, 1024), n))
+            flat, row_ids, by, bx = roi_align_ops.pallas_geometry(
+                feats, rois, bi, lv, (7, 7), scales)
+            base, stride = roi_align_ops.window_starts(row_ids)
+            args = (flat, base, stride, by, bx)
+            err = rel_err(kernel(*args), plain(*args))
+            torch.cuda.synchronize()
+            ms, plain_ms = time_ms(lambda: kernel(*args)), time_ms(lambda: plain(*args))
+            bound = roi_align_bound(*args)
+            label = f"C4 b{b} R={n} C={c} (flat {flat.shape[1]})"
+            print(f"[c4-kernels] roi_align_fwd {label} 7x7 pallas window "
+                  f"{by.shape[2]}x{bx.shape[2]}: err {err:.2e}, {ms:.4f} ms "
+                  f"(plain {plain_ms:.4f} ms; bound bytes {bound['bytes_ms']:.4f}"
+                  f" / operations {bound['ops_ms']:.4f} ms)")
+            if not err <= F32_TOL:
+                fail(f"roi_align_fwd on {label}: error {err} > {F32_TOL}")
+            worst = max(worst, err)
+            if kind == "request":
+                gather = roi_align_ops.multilevel_roi_align(
+                    feats, rois, bi, lv, (7, 7), scales, impl="gather")
+                pallas = roi_align_ops.multilevel_roi_align(
+                    feats, rois, bi, lv, (7, 7), scales, impl="pallas")
+                span = ((rois[:, 2:] - rois[:, :2]) / 16).max(dim=1).values
+                off = (pallas - gather).abs().amax(dim=(1, 2, 3)) / float(
+                    gather.abs().max())
+                inside = span <= by.shape[2] - 3
+                wide = off[~inside] if bool((~inside).any()) else off.new_zeros(1)
+                print(f"[c4-kernels] pallas vs gather pool, C={c}: "
+                      f"{int(inside.sum())} of {n} ROIs span at most "
+                      f"{by.shape[2] - 3} cells, worst {float(off[inside].max()):.2e}"
+                      f" of max |gather|; the {int((~inside).sum())} wider "
+                      f"(up to {float(span.max()):.1f} cells) worst "
+                      f"{float(wide.max()):.2e}, mean {float(wide.mean()):.2e}")
+                if not float(off[inside].max()) <= F32_TOL:
+                    fail(f"pallas pool differs from gather inside its window at C={c}")
+                continue
+            g = torch.randn(n, 7, 7, flat.shape[1], device="cuda", generator=gen)
+            g[..., c:] = 0  # the padded channels' pool is sliced off
+            d_regs = roi_align_ops._d_regions(by, bx, g, F32)
+            sargs = (d_regs, base, stride, flat.shape[0], F32)
+            t, tx = d_regs.shape[1:3]
+            check = scatter_check(SCATTER(*sargs), scatter_plain(*sargs), sargs,
+                                  label)
+            torch.cuda.synchronize()
+            ms = time_ms(lambda: SCATTER(*sargs), busy=SCATTER_BUSY)
+            plain_ms = time_ms(lambda: scatter_plain(*sargs), runs=7, calls=3)
+            b_ms = region_scatter_bound(*sargs)
+            print(f"[c4-kernels] region_scatter {label} window {t}x{tx} "
+                  f"S={flat.shape[0]}: {scatter_skew(base, stride, t, tx, flat.shape[0])}; "
+                  f"against the exact sum {check['err']:.2e} (worst "
+                  f"{check['share']:.3f} of an element's bound), {ms:.4f} ms "
+                  f"(plain {plain_ms:.4f} ms, index_add_ {index_add_ms(*sargs):.4f}"
+                  f" ms, bound {max(b_ms['bytes_ms'], b_ms['ops_ms']):.4f} ms); "
+                  f"equal to region_scatter_ordered and to a second call")
+            worst = max(worst, check["err"])
+    return worst
+
+
 class Capture:
     """Calls ``fn`` and keeps copies of the arguments of its first ``n``
     calls: the inputs a main path gives a kernel."""
@@ -544,6 +658,43 @@ class Capture:
         return self.fn(*args)
 
 
+class Proposals:
+    """Swaps ``generate_proposals`` in a module for a spy: ``keep()`` records
+    the proposals of each call, ``give(props)`` hands every call those
+    proposals, moved to the caller's device. For the C4 presets' card
+    against CPU comparisons: their one level's RPN scores hold exact ties,
+    which the card's and the CPU's softmax break a rounding apart, so the top-k order and the NMS after it differ between
+    the two from identical inputs; the head, the decode, per-class NMS and
+    the masks are compared from the same proposals."""
+
+    def __init__(self, module):
+        self.module, self.real, self.calls = module, module.generate_proposals, []
+
+    def keep(self):
+        def spy(*args, **kwargs):
+            props = self.real(*args, **kwargs)
+            self.calls.append(props)
+            return props
+        self.module.generate_proposals = spy
+        return self
+
+    def give(self, props):
+        def fixed(locs, *args, **kwargs):
+            return type(props)(*(t.to(locs.device) for t in props))
+        self.module.generate_proposals = fixed
+        return self
+
+    def restore(self):
+        self.module.generate_proposals = self.real
+
+
+def shared_slots(a, b) -> str:
+    """How many of two proposal sets' slots hold the same box."""
+    same = ((a.rois.cpu() - b.rois.cpu()).abs().amax(dim=-1) < 1e-2) & (
+        a.valid.cpu() == b.valid.cpu())
+    return f"{int(same.sum())} of {same.numel()}"
+
+
 def reset_launches():
     for kernel, *_ in KERNELS:
         kernel.launches = 0
@@ -553,30 +704,45 @@ def read_launches() -> dict:
     return {kernel.name: kernel.launches for kernel, *_ in KERNELS}
 
 
+def pool_launches(cfg) -> tuple[int, int, int]:
+    """(B2 launches a request, B2 a step, B1 a step) of a config's paths:
+    the FPN heads' shared pair under auto/region/fused trains with 2 and 1;
+    any other pool through a window geometry (``roi_align`` pallas or
+    region) launches B2 once and, training, B1 once per pool; the gather
+    form (``auto`` on one level, or ``gather``) launches neither."""
+    m = cfg.model
+    fpn = m.backbone == "fpn"
+    windows = m.roi_align in ("region", "pallas")
+    request = 2 if windows or (fpn and m.roi_align == "auto") else 0
+    if fpn and m.roi_align in ("auto", "region", "fused"):
+        return request, 2, 1
+    return (request, 2, 2) if windows else (request, 0, 0)
+
+
 def phase_predict(n_requests: int, seed: int, settings=None,
-                  preset: str = "fpn_mask"):
+                  preset: str = "fpn_mask", tag: str = "predict"):
     """Serve requests through the port's predict on the card; with
     ``settings`` (model config fields) in that configuration, else float32
     and held against the CPU."""
     cfg = cfg_lib._rep(predict_config(preset, 1, 800, 1024),
                        model=settings or {})
     keypoint = preset == "fpn_keypoint"
-    tag = "kp-predict" if keypoint else (
-        "predict" if settings is None else "bf16-predict")
+    per_request = pool_launches(cfg)[0]
     t0 = time.perf_counter()
     model = spread_class_scores(MaskRCNN(cfg, seed=seed))
     checksum = sum(float(v.double().abs().sum()) for v in model.state_dict().values())
     predict = make_predict_fn(cfg, model)
     data = SyntheticRequests(cfg, seed=seed)
     requests = [tuple(data.batch(i)) for i in range(n_requests)]
-    print(f"[{tag}] {preset} 800x1024 b1 {cfg.model.dtype}, "
-          f"{cfg.model.n_fg_class} classes, {cfg.model.n_mask_convs} head "
-          f"convs, weights' abs sum {checksum:.6f}, "
+    print(f"[{tag}] {preset} 800x1024 b1 {cfg.model.dtype}, roi_align "
+          f"{cfg.model.roi_align}, {cfg.model.n_fg_class} classes, "
+          f"{cfg.proposals.n_test_pre_nms}/{cfg.proposals.n_test_post_nms} "
+          f"proposals, weights' abs sum {checksum:.6f}, "
           f"model and {n_requests} requests ready in "
           f"{time.perf_counter() - t0:.1f} s")
 
     # warm-up request 0, keeping the kernel inputs it makes (2 per request)
-    capture = Capture(ROI_ALIGN, 2)
+    capture = Capture(ROI_ALIGN, per_request)
     roi_align_ops.roi_align_fwd = capture
     try:
         det0 = predict(*requests[0])
@@ -588,8 +754,10 @@ def phase_predict(n_requests: int, seed: int, settings=None,
     times, dets = time_requests(predict, requests, warmup=0)
     launches = read_launches()
     print(f"[{tag}] launches over {n_requests} requests: {launches}")
-    if launches != {"roi_align_fwd": 2 * n_requests, "region_scatter": 0}:
-        fail(f"expected 2 forward launches per request, got {launches}")
+    if launches != {"roi_align_fwd": per_request * n_requests,
+                    "region_scatter": 0}:
+        fail(f"expected {per_request} forward launches per request, got "
+             f"{launches}")
     for det in dets:
         for name, value in det._asdict().items():
             if value is not None and value.is_floating_point() and not torch.isfinite(value).all():
@@ -597,7 +765,8 @@ def phase_predict(n_requests: int, seed: int, settings=None,
         d = cfg.eval.max_detections
         if keypoint and det.heatmaps.shape != (1, d, 56, 56, cfg.model.n_keypoints):
             fail(f"heatmap shape {tuple(det.heatmaps.shape)}")
-        if not keypoint and det.masks.shape != (1, d, 28, 28):
+        size = model.head.mask_size
+        if not keypoint and det.masks.shape != (1, d, size, size):
             fail(f"mask shape {tuple(det.masks.shape)}")
     print(f"[{tag}] request p50 {percentile(times, 0.5):.3f} ms, max "
           f"{max(times):.3f} ms (CUDA events, {n_requests} requests after 1 "
@@ -613,9 +782,29 @@ def phase_predict(n_requests: int, seed: int, settings=None,
     t0 = time.perf_counter()
     cpu_model = MaskRCNN(cfg, device="cpu", seed=seed)
     cpu_model.load_state_dict(model.state_dict())
-    ref = make_predict_fn(cfg, cpu_model)(*requests[0])
+    spy = Proposals(predict_mod).keep()
+    try:
+        ref = make_predict_fn(cfg, cpu_model)(*requests[0])
+        if cfg.model.backbone == "c4":
+            det0 = predict(*requests[0])
+            spy.give(spy.calls[0])
+            det0 = predict(*requests[0])
+    finally:
+        spy.restore()
     print(f"[{tag}] request 0 on the CPU in {time.perf_counter() - t0:.1f} s, "
           f"{int(ref.valid.sum())} valid detections")
+    if cfg.model.backbone == "c4":
+        with torch.no_grad():
+            scores = cpu_model(torch.as_tensor(requests[0][0]))[2][0]
+        fg = torch.softmax(scores, -1)[:, 1]
+        top = fg.sort(descending=True).values[:cfg.proposals.n_test_pre_nms]
+        apart = float((torch.softmax(scores.cuda(), -1)[:, 1].cpu() - fg).abs().max())
+        print(f"[{tag}] the card's own proposals share {shared_slots(*spy.calls)}"
+              f" slots with the CPU's: {top.numel() - torch.unique(top).numel()} "
+              f"foreground scores of the CPU's top {top.numel()} repeat an "
+              f"earlier one exactly, and the card's softmax of the same RPN "
+              f"scores lies up to {apart:.1e} from the CPU's; the card's "
+              f"request is compared from the CPU's proposals")
     for name in ("valid", "labels"):
         if not torch.equal(getattr(det0, name).cpu(), getattr(ref, name)):
             fail(f"GPU and CPU {name} differ")
@@ -663,35 +852,38 @@ def snapshot(model) -> dict:
     return {k: v.detach().clone() for k, v in model.named_parameters()}
 
 
-def phase_train(n_steps: int, seed: int, settings=None, preset: str = "fpn_mask"):
+def phase_train(n_steps: int, seed: int, settings=None, preset: str = "fpn_mask",
+                tag: str = "train"):
     """Take optimizer steps through the port's train step on the card; with
     ``settings`` (model config fields) in that configuration."""
     cfg = cfg_lib._rep(predict_config(preset, 2, 800, 1024),
                        model=settings or {})
     keypoint = preset == "fpn_keypoint"
-    tag = "kp-train" if keypoint else (
-        "train" if settings is None else "bf16-train")
+    _, per_step, scatters = pool_launches(cfg)
     t0 = time.perf_counter()
     state = create_train_state(cfg, MaskRCNN(cfg, seed=seed), seed)
     step = make_train_step(cfg)
     data = SyntheticDetectionData(cfg, seed=seed)
     batches = [data.batch(i) for i in range(n_steps + 1)]
     print(f"[{tag}] {preset} 800x1024 b2 {cfg.model.dtype}, freeze_bn "
-          f"{cfg.model.freeze_bn}, {cfg.model.n_fg_class} classes, "
+          f"{cfg.model.freeze_bn}, roi_align {cfg.model.roi_align}, "
+          f"{cfg.model.n_fg_class} classes, "
           f"{cfg.proposals.n_train_pre_nms}/{cfg.proposals.n_train_post_nms} "
           f"proposals, {cfg.sampler.n_sample} sampled ROIs per image; model "
           f"and {n_steps + 1} batches ready in {time.perf_counter() - t0:.1f} s")
 
     # the warm-up step, keeping the kernel inputs it makes
     # (and the cotangents that the products feeding the scatter get)
-    fwd, bwd = Capture(ROI_ALIGN, 2), Capture(SCATTER, 1)
+    fwd, bwd = Capture(ROI_ALIGN, per_step), Capture(SCATTER, scatters)
     d_regions = roi_align_ops._d_regions
-    products = Capture(d_regions, 2)
+    products = Capture(d_regions, 2 if scatters else 0)
     roi_align_ops.roi_align_fwd, roi_align_ops.region_scatter = fwd, bwd
     roi_align_ops._d_regions = products
     try:
+        t1 = time.perf_counter()
         step(state, batches[0])
         torch.cuda.synchronize()
+        print(f"[{tag}] warm-up step in {time.perf_counter() - t1:.1f} s")
     finally:
         roi_align_ops.roi_align_fwd, roi_align_ops.region_scatter = ROI_ALIGN, SCATTER
         roi_align_ops._d_regions = d_regions
@@ -702,9 +894,10 @@ def phase_train(n_steps: int, seed: int, settings=None, preset: str = "fpn_mask"
     times, metrics, peak = time_train_steps(step, state, batches[1:], warmup=0)
     launches = read_launches()
     print(f"[{tag}] launches over {n_steps} steps: {launches}")
-    if launches != {"roi_align_fwd": 2 * n_steps, "region_scatter": n_steps}:
-        fail(f"expected 2 forward launches and 1 region scatter per step, "
-             f"got {launches}")
+    if launches != {"roi_align_fwd": per_step * n_steps,
+                    "region_scatter": scatters * n_steps}:
+        fail(f"expected {per_step} forward launches and {scatters} region "
+             f"scatters per step, got {launches}")
     for i, m in enumerate(metrics):
         m = {k: float(v) for k, v in m.items()}
         print(f"[{tag}] step {i + 1}: " + ", ".join(
@@ -742,7 +935,8 @@ def running_statistics(model) -> dict:
             if k.endswith(("running_mean", "running_var"))}
 
 
-def phase_train_gpu_vs_cpu(seed: int, preset: str = "fpn_mask"):
+def phase_train_gpu_vs_cpu(seed: int, preset: str = "fpn_mask",
+                           tag: str = "train"):
     """One train step from the same weights, batch and sampler draws on the
     card and on the CPU: full widths (80 classes for the mask head) on a
     256×320 canvas with 1000/256 proposals, so the CPU step stays short.
@@ -751,7 +945,10 @@ def phase_train_gpu_vs_cpu(seed: int, preset: str = "fpn_mask"):
     update must stay below a millionth of the step's largest instead."""
     cfg = cfg_lib._rep(predict_config(preset, 2, 256, 320),
                        proposals=dict(n_train_pre_nms=1000, n_train_post_nms=256))
-    tag = "kp-train" if preset == "fpn_keypoint" else "train"
+    if preset in C4_CPU_SAMPLES:
+        cfg = cfg_lib._rep(cfg, sampler=dict(n_sample=C4_CPU_SAMPLES[preset]))
+        print(f"[{tag}] card vs CPU step cut to sampler.n_sample "
+              f"{cfg.sampler.n_sample} (from 256) so the CPU side stays short")
     batch = SyntheticDetectionData(cfg, seed=seed).batch(0)
     gen = torch.Generator().manual_seed(seed)
     n_anchor = 3 * sum(h * w for h, w in pyramid_shapes(cfg, (256, 320)))
@@ -760,16 +957,25 @@ def phase_train_gpu_vs_cpu(seed: int, preset: str = "fpn_mask"):
         torch.rand((2, 2, n_anchor), generator=gen))
     step = make_train_step(cfg)
     runs = {}
-    for device in ("cuda", "cpu"):
+    c4 = cfg.model.backbone == "c4"
+    spy = Proposals(step_mod)
+    for device in ("cpu", "cuda"):
         t0 = time.perf_counter()
         state = create_train_state(cfg, MaskRCNN(cfg, device=device, seed=seed))
         before = snapshot(state.model)
-        metrics = {k: float(v) for k, v in step(state, batch, draws).items()}
+        if c4:  # the CPU's proposals on both sides (see Proposals)
+            spy.keep() if device == "cpu" else spy.give(spy.calls[0])
+        try:
+            metrics = {k: float(v) for k, v in step(state, batch, draws).items()}
+        finally:
+            spy.restore()
         update = {k: (v - before[k]).cpu() for k, v in snapshot(state.model).items()}
         runs[device] = metrics, update
         print(f"[{tag}] 256x320 b2 step on {device} in "
               f"{time.perf_counter() - t0:.1f} s: " + ", ".join(
                   f"{k} {v:.6f}" for k, v in metrics.items()))
+    if c4:
+        print(f"[{tag}] the card's step took the CPU's proposals")
     (got, got_up), (want, want_up) = runs["cuda"], runs["cpu"]
     unseen = ({k: (got_up.pop(k), want_up.pop(k)) for k in SOFTMAX_UNSEEN}
               if preset == "fpn_keypoint" else {})
@@ -989,16 +1195,17 @@ def phase_eval(n_batches: int, seed: int):
     return launches
 
 
-def phase_cli(seed: int):
-    """The CLIs in this process, in a temporary directory: ``cli.train`` at
-    256×320 b2 for 4 steps (snapshots at 2 and 4, an evaluation of 2
-    held-out batches at 4), the same run resumed from its step-2 checkpoint,
-    and ``cli.evaluate`` on the step-4 checkpoint. Losses of steps 3 and 4
-    agree, the evaluation reproduces the in-run report and detections, and
-    B2 and B1 launch as the steps and evaluations need."""
-    common = ["--image-size", "256x320", "--batch-size", "2", "--iterations", "4",
-              "--snapshot-every", "2", "--eval-every", "4", "--eval-batches", "2",
-              "--log-every", "1", "--seed", str(seed)]
+def phase_cli(seed: int, preset: str = "fpn_mask", tag: str = "cli"):
+    """The CLIs in this process, in a temporary directory: ``cli.train
+    --preset`` at 256×320 b2 for 4 steps (snapshots at 2 and 4, an
+    evaluation of 2 held-out batches at 4), the same run resumed from its
+    step-2 checkpoint, and ``cli.evaluate`` on the step-4 checkpoint. Losses
+    of steps 3 and 4 agree, the evaluation reproduces the in-run report and
+    detections, and B2 and B1 launch as the steps and evaluations need."""
+    common = ["--preset", preset, "--image-size", "256x320", "--batch-size", "2",
+              "--iterations", "4", "--snapshot-every", "2", "--eval-every", "4",
+              "--eval-batches", "2", "--log-every", "1", "--seed", str(seed)]
+    fwd, per_step, scatters = pool_launches(cfg_lib.PRESETS[preset]())
     spy_dets = {}
     make = evaluator.make_predict_fn
 
@@ -1031,6 +1238,7 @@ def phase_cli(seed: int):
                 train_cli.main(["--out", str(tmp / "b"), "--resume", *common])
             else:
                 report = evaluate_cli.main([
+                    "--preset", preset,
                     "--weight", str(tmp / "a" / "checkpoints" / "step_00000004.pt"),
                     "--n-batches", "2", "--seed", str(seed),
                     "--set", "train.image_size=256x320",
@@ -1043,10 +1251,12 @@ def phase_cli(seed: int):
         evaluator.make_predict_fn = make
         shutil.rmtree(tmp, ignore_errors=True)
     secs = time.perf_counter() - t0
-    print(f"[cli] launches (train, resumed, evaluate): {launches}")
-    want = {"run": {"roi_align_fwd": 4 * 2 + 2 * 2, "region_scatter": 4},
-            "resumed": {"roi_align_fwd": 2 * 2 + 2 * 2, "region_scatter": 2},
-            "evaluate": {"roi_align_fwd": 2 * 2, "region_scatter": 0}}
+    print(f"[{tag}] {preset}: launches (train, resumed, evaluate): {launches}")
+    want = {"run": {"roi_align_fwd": 4 * per_step + 2 * fwd,
+                    "region_scatter": 4 * scatters},
+            "resumed": {"roi_align_fwd": 2 * per_step + 2 * fwd,
+                        "region_scatter": 2 * scatters},
+            "evaluate": {"roi_align_fwd": 2 * fwd, "region_scatter": 0}}
     if launches != want:
         fail(f"CLI launches {launches}, expected {want}")
     steps = {d: {r["iteration"]: r for r in rs if "main/loss" in r}
@@ -1061,7 +1271,7 @@ def phase_cli(seed: int):
                 worst = max(worst, rel)
                 if not np.isfinite(v) or rel > CLI_LOSS_TOL:
                     fail(f"resumed CLI step {it} {k}: {steps['b'][it][k]} vs {v}")
-    print(f"[cli] steps 3-4 resumed from the step-2 checkpoint: worst loss "
+    print(f"[{tag}] steps 3-4 resumed from the step-2 checkpoint: worst loss "
           f"difference {worst:.3e} relative; losses "
           + ", ".join(f"{it}: {steps['a'][it]['main/loss']:.5f}" for it in (1, 2, 3, 4)))
     val = [r for r in rows["a"] if "validation/main/map" in r]
@@ -1072,7 +1282,7 @@ def phase_cli(seed: int):
     err = max(abs(report[k] - in_run[k]) for k in report)
     dets = [max(float((a[k].float() - b[k].float()).abs().max()) for k in a)
             for a, b in zip(spy_dets["run"], spy_dets["evaluate"])]
-    print(f"[cli] cli.evaluate on the step-4 checkpoint against the in-run "
+    print(f"[{tag}] cli.evaluate on the step-4 checkpoint against the in-run "
           f"report: worst field {err:.3e}; detections' worst difference "
           f"{max(dets):.3e} over {len(dets)} batches; map {report['map']:.4f}, "
           f"coco/map {report['coco/map']:.4f}; {secs:.1f} s for the phase")
@@ -1502,27 +1712,45 @@ def main(argv=None):
     phase_device()
     phase_build()
     worst = max(phase_roi_align_vs_plain(args.seed),
-                phase_region_scatter_vs_plain(args.seed))
+                phase_region_scatter_vs_plain(args.seed),
+                phase_c4_kernels_vs_plain(args.seed))
     print(f"[kernels] worst f32 error against the plain versions: {worst:.2e}")
     paths = {}
     launches, calls = phase_predict(N_REQUESTS, args.seed)
     paths["predict"] = (launches, calls, [], [])
     paths["train"] = phase_train(N_TRAIN_STEPS, args.seed)
     phase_train_gpu_vs_cpu(args.seed)
-    launches, calls = phase_predict(N_REQUESTS, args.seed, BF16_SETTINGS)
+    launches, calls = phase_predict(N_REQUESTS, args.seed, BF16_SETTINGS,
+                                    tag="bf16-predict")
     paths["bf16_predict"] = (launches, calls, [], [])
     paths["bf16_train"] = phase_train(N_TRAIN_STEPS, args.seed,
-                                      BF16_TRAIN_SETTINGS)
+                                      BF16_TRAIN_SETTINGS, tag="bf16-train")
     phase_bf16_gpu_vs_cpu(args.seed)
     paths["eval"] = (phase_eval(N_EVAL_BATCHES, args.seed), [], [], [])
     paths["cli"] = (phase_cli(args.seed), [], [], [])
-    launches, calls = phase_predict(N_REQUESTS, args.seed, preset="fpn_keypoint")
+    launches, calls = phase_predict(N_REQUESTS, args.seed, preset="fpn_keypoint",
+                                    tag="kp-predict")
     paths["kp_predict"] = (launches, calls, [], [])
-    paths["kp_train"] = phase_train(N_TRAIN_STEPS, args.seed, preset="fpn_keypoint")
-    phase_train_gpu_vs_cpu(args.seed, preset="fpn_keypoint")
+    paths["kp_train"] = phase_train(N_TRAIN_STEPS, args.seed, preset="fpn_keypoint",
+                                    tag="kp-train")
+    phase_train_gpu_vs_cpu(args.seed, preset="fpn_keypoint", tag="kp-train")
     paths["kp_eval"] = (phase_kp_eval(N_KP_EVAL_BATCHES, args.seed), [], [], [])
     launches, by_shape, (fwd_calls, bwd_calls, product_calls) = phase_coco_cli(args.seed)
     paths["coco_portrait"] = (launches, fwd_calls, bwd_calls, product_calls)
+    for short, preset in C4_PRESETS.items():
+        launches, calls = phase_predict(N_REQUESTS, args.seed, preset=preset,
+                                        tag=f"{short}-predict")
+        paths[f"{short}_predict"] = (launches, calls, [], [])
+        paths[f"{short}_train"] = phase_train(N_TRAIN_STEPS, args.seed,
+                                              preset=preset, tag=f"{short}-train")
+        phase_train_gpu_vs_cpu(args.seed, preset, tag=f"{short}-train")
+        launches, calls = phase_predict(1, args.seed, PALLAS, preset,
+                                        tag=f"{short}-pallas-predict")
+        paths[f"{short}_pallas_predict"] = (launches, calls, [], [])
+        paths[f"{short}_pallas_train"] = phase_train(
+            1, args.seed, PALLAS, preset, tag=f"{short}-pallas-train")
+        paths[f"{short}_cli"] = (phase_cli(args.seed, preset, f"{short}-cli"),
+                                 [], [], [])
     entries = phase_kernels_line(paths)
     for entry in entries:
         entry["coco_launches_by_shape"] = {k: v[entry["name"]]

@@ -1,7 +1,8 @@
 """Two-pass predict latency and train-step throughput of the port on one
 GPU (counterpart of the JAX package's ``bench.py``).
 
-    python -m maskrcnn_tpu_torch.bench --mode predict|train [--preset fpn_mask]
+    python -m maskrcnn_tpu_torch.bench --mode predict|train
+        [--preset fpn_mask|fpn_keypoint|light_head|c4_res5]
         [--batch B] [--height 800] [--width 1024] [--steps 20]
         [--roi-align auto] [--dtype float32|bfloat16]
         [--roi-align-acc float32|bfloat16] [--remat] [--grad-accum N]
@@ -24,8 +25,9 @@ and images per second, the peak device memory of a step, the last step's
 losses, the hand-written kernels' launches per step, and the time and
 memory of proposal generation (exact NMS) alone; with ``--profile N`` also
 the device's busy share and the kernels that take its time, traced over N
-more steps. Training pools through the shared window only (``--roi-align``
-auto, region or fused).
+more steps. The FPN heads train through the shared window under
+``--roi-align`` auto, region or fused and through two pools under gather or
+pallas; the light and Res5 heads always pool twice.
 
 ``--mode predict`` (batch 1 unless given) serves synthetic requests (seeded
 random weights with the class scores spread as :func:`spread_class_scores`
@@ -109,8 +111,15 @@ def spread_class_scores(model, scale: float = 8.0):
     weights; :func:`passing_pairs` counts it per request.
     """
     with torch.no_grad():
-        model.head.box.score.weight.mul_(scale)
+        class_score_layer(model).weight.mul_(scale)
     return model
+
+
+def class_score_layer(model):
+    """The head's dense layer that gives the class logits: ``head.box.score``
+    of the FPN heads, ``head.score`` of the light and Res5 heads."""
+    head = model.head
+    return head.score if hasattr(head, "score") else head.box.score
 
 
 def passing_pairs(cfg: cfg_lib.Config, model, predict, requests) -> list[int]:
@@ -123,7 +132,7 @@ def passing_pairs(cfg: cfg_lib.Config, model, predict, requests) -> list[int]:
         probs = torch.softmax(logits, dim=-1)[:, 1:]
         counts.append(int((probs > cfg.eval.score_thresh).sum()))
 
-    handle = model.head.box.score.register_forward_hook(count)
+    handle = class_score_layer(model).register_forward_hook(count)
     try:
         for req in requests:
             predict(*req)
@@ -287,8 +296,7 @@ def main(argv=None):
     p.add_argument("--steps", type=int, default=20)
     p.add_argument("--roi-align", default="auto",
                    choices=["auto", "region", "gather", "pallas", "fused"],
-                   help="ROIAlign form of the predict path; the train path "
-                        "takes auto, region or fused")
+                   help="model.roi_align: the ROIAlign form of both paths")
     p.add_argument("--dtype", default="float32", choices=["float32", "bfloat16"],
                    help="model.dtype: the compute dtype of convs and dense layers")
     p.add_argument("--roi-align-acc", default="float32",

@@ -38,7 +38,9 @@ from maskrcnn_tpu_torch.cli.train import (
 
 def main(argv=None) -> dict:
     p = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    p.add_argument("--preset", default="fpn_mask")
+    p.add_argument("--preset", default="fpn_mask",
+                   help="the training run's preset: fpn_mask, fpn_keypoint, "
+                        "light_head or c4_res5")
     p.add_argument("--weight", default=None,
                    help="checkpoint of the train CLI (parameters and buffers)")
     p.add_argument("--dataset", default="synthetic", choices=["synthetic", "coco"])

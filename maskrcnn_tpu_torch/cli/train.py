@@ -8,8 +8,9 @@
          --eval-split S --category-filter A,B --buckets HxW,HxW \\
          --loader-workers N] [--set SECTION.KEY=VALUE ...] [--device cuda|cpu]
 
-Trains the preset's head (the mask head of ``fpn_mask``, the keypoint head
-of ``fpn_keypoint``) on the GPU unless ``--device cpu``, from the step-pure
+Trains the preset's model (``fpn_mask``'s mask head, ``fpn_keypoint``'s
+keypoint head, ``light_head``'s Light-Head R-CNN head or ``c4_res5``'s Res5
+head on the C4 backbone) on the GPU unless ``--device cpu``, from the step-pure
 synthetic stream (``SyntheticDetectionData``, ``--seed``) or a COCO-format
 directory (``--dataset coco``: ``<root>/annotations/instances_<split>.json``
 or ``person_keypoints_<split>.json`` for the keypoint head, images under
@@ -63,9 +64,12 @@ DEFAULT_LABELS = os.path.join(os.path.dirname(__file__), "..", "..", "data",
 def parse_args(argv=None):
     p = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     p.add_argument("--preset", default="fpn_mask",
-                   help="a preset of maskrcnn_tpu_torch/config.py with the "
-                        "FPN backbone and the mask head (fpn_mask) or the "
-                        "keypoint head (fpn_keypoint)")
+                   help="a preset of maskrcnn_tpu_torch/config.py: the "
+                        "FPN backbone with the mask head (fpn_mask) or the "
+                        "keypoint head (fpn_keypoint), or the C4 backbone "
+                        "with the light head (light_head) or the Res5 head "
+                        "(c4_res5); tiny_test and darknet_keypoint are not "
+                        "ported yet (ROADMAP A.4)")
     p.add_argument("--out", default="result", help="output directory")
     p.add_argument("--iterations", type=int, default=None)
     p.add_argument("--lr", type=float, default=None)

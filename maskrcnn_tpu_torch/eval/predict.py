@@ -1,8 +1,9 @@
 """Two-pass inference: boxes first, then masks on the refined boxes (port of
 ``maskrcnn_tpu/eval/predict.py``, its native-gather path).
 
-Pass 1 runs backbone, RPN, proposals and the box branch, decodes
-class-agnostic boxes per class (loc · std + mean → loc2bbox → clip), and
+Pass 1 runs backbone, RPN, proposals and the box branch, decodes boxes
+per class (loc · std + mean → loc2bbox → clip; one class-agnostic loc, or
+each class's own for the Res5 head), and
 keeps every (ROI, class) pair above ``score_thresh`` for an exact per-class
 greedy NMS (all classes of an image in one batched call). A global
 top-``max_detections`` by score merges the classes. Pass 2 pools the
@@ -44,14 +45,22 @@ class Detections(NamedTuple):
 
 
 def decode_boxes(cfg: Config, rois, locs, probs, rvalid, img_hw):
-    """One image: rois (R, 4), class-agnostic locs (R, 4), probs (R, C+1),
-    rvalid (R,) → (cls_boxes (n_fg, R, 4), cls_scores (n_fg, R),
-    cls_valid (n_fg, R))."""
+    """One image: rois (R, 4), locs (R, 4) class-agnostic or (R, (C+1)·4)
+    per class (the Res5 head), probs (R, C+1), rvalid (R,) → (cls_boxes
+    (n_fg, R, 4), cls_scores (n_fg, R), cls_valid (n_fg, R))."""
     n_fg = cfg.model.n_fg_class
     mean = torch.tensor(cfg.sampler.loc_normalize_mean, device=locs.device)
     std = torch.tensor(cfg.sampler.loc_normalize_std, device=locs.device)
-    boxes = clip_boxes(loc2bbox(rois, locs * std + mean), (img_hw[0], img_hw[1]))
-    cls_boxes = boxes[None].expand(n_fg, -1, -1)
+    hw = (img_hw[0], img_hw[1])
+    if locs.shape[-1] == 4:
+        boxes = clip_boxes(loc2bbox(rois, locs * std + mean), hw)
+        cls_boxes = boxes[None].expand(n_fg, -1, -1)
+    else:  # each foreground class's own loc, background's column dropped
+        r = rois.shape[0]
+        locs_fg = (locs.reshape(r, -1, 4)[:, 1:] * std + mean).transpose(0, 1)
+        cls_boxes = clip_boxes(loc2bbox(
+            rois[None].expand(n_fg, -1, -1).reshape(-1, 4),
+            locs_fg.reshape(-1, 4)), hw).reshape(n_fg, r, 4)
     cls_scores = probs[:, 1:].T
     cls_valid = rvalid[None, :] & (cls_scores > cfg.eval.score_thresh)
     return cls_boxes, cls_scores, cls_valid
@@ -80,23 +89,25 @@ def merge_top(cls_boxes, cls_scores, roi_levels, keep_idx, keep_valid, d: int):
     return det_boxes, det_scores, det_labels.to(torch.int32), det_valid, det_levels
 
 
-def predict_masks(cfg: Config, model: MaskRCNN, features, det_boxes,
+def predict_masks(cfg: Config, model: MaskRCNN, roi_feats, det_boxes,
                   det_labels, det_levels):
-    """Pass 2: (B, D) detections → (masks, heatmaps): (B, D, 28, 28)
-    sigmoid mask probs and None, or None and (B, D, 56, 56, K) heatmap
-    logits for the keypoint head."""
+    """Pass 2: (B, D) detections → (masks, heatmaps): (B, D, S, S) sigmoid
+    mask probs of each detection's class (S = 28 for the FPN mask head, 14
+    for the light and Res5 heads) and None, or None and (B, D, 56, 56, K)
+    heatmap logits for the keypoint head. ``roi_feats`` is
+    ``model.roi_features(features)``."""
     b, d = det_boxes.shape[:2]
     flat_boxes = det_boxes.reshape(b * d, 4)
     if cfg.eval.mask_levels == "pass1":
         flat_levels = det_levels.reshape(b * d)
     else:
-        flat_levels = map_rois_to_fpn_levels(flat_boxes, 0, len(features) - 1)
+        flat_levels = map_rois_to_fpn_levels(flat_boxes, 0, len(roi_feats) - 1)
     flat_bi = torch.arange(b, dtype=torch.int32,
                            device=det_boxes.device).repeat_interleave(d)
     if cfg.model.head == "fpn_keypoint":
-        heat = model.head_mask(features, flat_boxes, flat_bi, flat_levels)
+        heat = model.head_mask(roi_feats, flat_boxes, flat_bi, flat_levels)
         return None, heat.reshape(b, d, *heat.shape[1:])
-    logits = model.head_mask(features, flat_boxes, flat_bi, flat_levels,
+    logits = model.head_mask(roi_feats, flat_boxes, flat_bi, flat_levels,
                              det_labels.reshape(b * d))
     return torch.sigmoid(logits).reshape(b, d, *logits.shape[1:]), None
 
@@ -125,6 +136,7 @@ def make_predict_fn(cfg: Config, model: MaskRCNN, image_size=None):
         scale = torch.as_tensor(scale, dtype=torch.float32, device=dev)
         b = images.shape[0]
         features, rpn_locs, rpn_scores = model(images)
+        roi_feats = model.roi_features(features)
         props = generate_proposals(
             rpn_locs, rpn_scores, anchors, scale, img_hw,
             n_pre=cfg.proposals.n_test_pre_nms,
@@ -135,7 +147,7 @@ def make_predict_fn(cfg: Config, model: MaskRCNN, image_size=None):
         r = props.rois.shape[1]
         batch_idx = torch.arange(b, dtype=torch.int32, device=dev).repeat_interleave(r)
         locs, roi_scores = model.head_box(
-            features, props.rois.reshape(b * r, 4), batch_idx,
+            roi_feats, props.rois.reshape(b * r, 4), batch_idx,
             props.levels.reshape(b * r))
         probs = torch.softmax(roi_scores, dim=-1).reshape(b, r, -1)
         locs = locs.reshape(b, r, -1)
@@ -149,7 +161,7 @@ def make_predict_fn(cfg: Config, model: MaskRCNN, image_size=None):
                                   keep_idx, keep_valid, d))
         det_boxes, det_scores, det_labels, det_valid, det_levels = (
             torch.stack(t) for t in zip(*dets))
-        masks, heatmaps = predict_masks(cfg, model, features, det_boxes,
+        masks, heatmaps = predict_masks(cfg, model, roi_feats, det_boxes,
                                         det_labels, det_levels)
         return Detections(det_boxes, det_scores, det_labels, det_valid, masks,
                           heatmaps)

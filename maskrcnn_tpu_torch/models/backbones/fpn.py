@@ -1,11 +1,13 @@
-"""FPN neck on ResNet-50 (port of ``maskrcnn_tpu/models/backbones/fpn.py``).
+"""The backbones (port of ``maskrcnn_tpu/models/backbones/fpn.py``): the FPN
+neck on ResNet-50, and the C4 backbone, ResNet-50 cut at res4 (one level
+of 1024 channels at stride 16), chosen by :func:`build_backbone`.
 
 Reference quirks kept: nearest ×2 upsample in the top-down path, lateral
 1×1 then a 3×3 conv after the sum, and P6 as a 1×1 stride-2 conv on P5
 (flax's SAME padding gives ``ceil(H/2)``; an unpadded stride-2 1×1 conv
 gives the same).
 
-``remat`` checkpoints the whole backbone (``torch.utils.checkpoint``, as the
+``remat`` checkpoints either whole backbone (``torch.utils.checkpoint``, as the
 JAX package wraps the backbone class in ``nn.remat``): only its input and
 outputs are kept for the backward, which runs the forward again. The
 recomputation holds the BatchNorm statistics, so a trainable BatchNorm
@@ -23,6 +25,17 @@ from torch.utils.checkpoint import checkpoint
 
 from maskrcnn_tpu_torch.models.backbones.resnet import ResNet50, statistics_held
 from maskrcnn_tpu_torch.models.layers import Conv2d
+
+
+def _run(backbone: nn.Module, fn, x, train: bool):
+    """``fn(x, train)``, checkpointed when the backbone remats and autograd
+    records."""
+    if backbone.remat and torch.is_grad_enabled():
+        return checkpoint(
+            fn, x, train, use_reentrant=False,
+            context_fn=lambda: (contextlib.nullcontext(),
+                                statistics_held(backbone)))
+    return fn(x, train)
 
 
 def upsample2x_nearest(x):
@@ -56,12 +69,7 @@ class FPNBackbone(nn.Module):
                               compute_dtype=dtype)
 
     def forward(self, x, train: bool = False):
-        if self.remat and torch.is_grad_enabled():
-            return checkpoint(
-                self._pyramid, x, train, use_reentrant=False,
-                context_fn=lambda: (contextlib.nullcontext(),
-                                    statistics_held(self)))
-        return self._pyramid(x, train)
+        return _run(self, self._pyramid, x, train)
 
     def _pyramid(self, x, train: bool):
         c2, c3, c4, c5 = self.resnet(x, train)
@@ -70,3 +78,35 @@ class FPNBackbone(nn.Module):
         p3 = self.conv_p3(upsample2x_nearest(p4) + self.lat_p3(c3))
         p2 = self.conv_p2(upsample2x_nearest(p3) + self.lat_p2(c2))
         return [p2, p3, p4, p5, self.conv_p6(p5)]
+
+
+class C4Backbone(nn.Module):
+    """ResNet-50 truncated at res4 → [C4] (NCHW), 1024 channels at stride
+    16, in ``dtype``."""
+
+    feat_strides = (16,)
+
+    def __init__(self, frozen_bn: bool = True,
+                 dtype: torch.dtype = torch.float32, remat: bool = False):
+        super().__init__()
+        self.remat = remat
+        self.resnet = ResNet50(frozen_bn, dtype, include_c5=False)
+
+    def forward(self, x, train: bool = False):
+        return _run(self, self._c4, x, train)
+
+    def _c4(self, x, train: bool):
+        return [self.resnet(x, train)[2]]
+
+
+def build_backbone(name: str, channels: int, frozen_bn: bool,
+                   dtype: torch.dtype, remat: bool = False) -> nn.Module:
+    """The backbone that ``cfg.model.backbone`` names."""
+    if name == "fpn":
+        return FPNBackbone(channels, frozen_bn, dtype, remat)
+    if name == "c4":
+        return C4Backbone(frozen_bn, dtype, remat)
+    if name == "darknet":
+        raise NotImplementedError(
+            "backbone='darknet' is not ported yet (ROADMAP.md A.4)")
+    raise ValueError(f"unknown backbone {name!r}")

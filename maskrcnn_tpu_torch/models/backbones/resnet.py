@@ -130,10 +130,11 @@ class ResStage(nn.Module):
 
 
 class ResNet50(nn.Module):
-    """Returns (c2, c3, c4, c5) at strides 4/8/16/32, in ``dtype``."""
+    """Returns (c2, c3, c4, c5) at strides 4/8/16/32, in ``dtype``; with
+    ``include_c5=False`` (the C4 backbone) (c2, c3, c4) and no res5."""
 
     def __init__(self, frozen_bn: bool = True,
-                 dtype: torch.dtype = torch.float32):
+                 dtype: torch.dtype = torch.float32, include_c5: bool = True):
         super().__init__()
         self.conv1 = Conv2d(3, 64, 7, stride=2, padding=3, bias=False,
                             compute_dtype=dtype)
@@ -142,7 +143,7 @@ class ResNet50(nn.Module):
         self.res2 = ResStage(3, 64, 64, 256, 1, *args)
         self.res3 = ResStage(4, 256, 128, 512, 2, *args)
         self.res4 = ResStage(6, 512, 256, 1024, 2, *args)
-        self.res5 = ResStage(3, 1024, 512, 2048, 2, *args)
+        self.res5 = ResStage(3, 1024, 512, 2048, 2, *args) if include_c5 else None
 
     def forward(self, x, train: bool = False):
         h = F.relu(self.bn1(self.conv1(x), train))
@@ -150,4 +151,20 @@ class ResNet50(nn.Module):
         c2 = self.res2(h, train)
         c3 = self.res3(c2, train)
         c4 = self.res4(c3, train)
+        if self.res5 is None:
+            return c2, c3, c4
         return c2, c3, c4, self.res5(c4, train)
+
+
+class Res5Stage(nn.Module):
+    """res5 on its own with every stride 1, for the Res5 ROI head: 1024 →
+    2048 channels at the input's size, parameters under ``res5`` as in the
+    flax tree (``head/res5/res5``)."""
+
+    def __init__(self, frozen_bn: bool = True,
+                 dtype: torch.dtype = torch.float32):
+        super().__init__()
+        self.res5 = ResStage(3, 1024, 512, 2048, 1, frozen_bn, dtype)
+
+    def forward(self, x, train: bool = False):
+        return self.res5(x, train)

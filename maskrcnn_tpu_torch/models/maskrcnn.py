@@ -1,18 +1,23 @@
 """MaskRCNN facade: backbone + RPN + ROI head (port of
-``maskrcnn_tpu/models/maskrcnn.py``, FPN backbone with the FPN mask or
-keypoint head).
+``maskrcnn_tpu/models/maskrcnn.py``): the FPN backbone with the FPN mask or
+keypoint head, and the C4 backbone with the light head (``light_head``) or
+the Res5 head (``c4_res5``).
 
-Stages are methods — ``extract``, ``rpn``, ``pool``, ``head_box``,
-``head_mask``, ``head_train`` — that two-pass predict and the train step
-compose around the parameter-free glue (proposals, NMS, targets). Features travel between stages in the JAX layout,
-one ``(B, H, W, C)`` tensor per level; they are NHWC views of the
+Stages are methods — ``extract``, ``rpn``, ``roi_features``, ``pool``,
+``head_box``, ``head_mask``, ``head_full``, ``head_train`` — that two-pass
+predict and the train step compose around the parameter-free glue
+(proposals, NMS, targets). Features travel between stages in the JAX
+layout, one ``(B, H, W, C)`` tensor per level; they are NHWC views of the
 channels_last NCHW maps the convolutions produce, so the round trip copies
-nothing.
+nothing. The heads pool from ``roi_features(features)``: the backbone's
+levels, or for the light head its 490-channel thin map of the one C4
+level, which the JAX package recomputes at every pool and the port once
+per forward.
 
 ``cfg.model.dtype`` is the compute dtype of every conv and dense layer
 (parameters stay float32), ``freeze_bn`` picks the running or, in training,
-the batch statistics of the backbone's BatchNorms, ``remat`` checkpoints
-the backbone, and ``roi_align_acc`` is the accumulator of the shared pool's
+the batch statistics of the BatchNorms, ``remat`` checkpoints the backbone,
+and ``roi_align_acc`` is the accumulator of the FPN heads' shared pool's
 backward (:func:`multilevel_roi_align_train`).
 """
 
@@ -22,8 +27,10 @@ import torch
 from torch import nn
 
 from maskrcnn_tpu_torch.config import Config
-from maskrcnn_tpu_torch.models.backbones.fpn import FPNBackbone
+from maskrcnn_tpu_torch.models.backbones.fpn import build_backbone
 from maskrcnn_tpu_torch.models.heads.fpn_heads import FPNKeypointHead, FPNMaskHead
+from maskrcnn_tpu_torch.models.heads.light_head import LightHead
+from maskrcnn_tpu_torch.models.heads.res5_head import Res5Head
 from maskrcnn_tpu_torch.models.init import init_weights
 from maskrcnn_tpu_torch.models.layers import compute_dtype
 from maskrcnn_tpu_torch.models.rpn import RPNHead
@@ -34,6 +41,7 @@ from maskrcnn_tpu_torch.ops.roi_align import (
 from maskrcnn_tpu_torch.utils.device import resolve_device
 
 _BACKBONE_STRIDES = {"fpn": (4, 8, 16, 32, 64), "c4": (16,), "darknet": (16,)}
+C4_CHANNELS = 1024  # res4's width, the C4 backbone's one level
 
 
 def backbone_geometry(cfg: Config):
@@ -61,8 +69,14 @@ def build_head(cfg: Config, dtype: torch.dtype) -> nn.Module:
     m = cfg.model
     if m.head == "fpn":
         return FPNMaskHead(m.n_class, m.n_mask_convs, m.fpn_channels, dtype)
-    return FPNKeypointHead(m.n_class, m.n_keypoints, m.n_mask_convs,
-                           m.fpn_channels, dtype, m.kp_upsample)
+    if m.head == "fpn_keypoint":
+        return FPNKeypointHead(m.n_class, m.n_keypoints, m.n_mask_convs,
+                               m.fpn_channels, dtype, m.kp_upsample)
+    if m.head == "light":
+        return LightHead(m.n_class, m.compat_mask_bug, C4_CHANNELS, dtype)
+    if m.head == "res5":
+        return Res5Head(m.n_class, m.freeze_bn, dtype)
+    raise ValueError(f"unknown head {m.head!r}")
 
 
 class MaskRCNN(nn.Module):
@@ -72,15 +86,13 @@ class MaskRCNN(nn.Module):
     def __init__(self, cfg: Config, device=None, seed: int = 0):
         super().__init__()
         m = cfg.model
-        if m.backbone != "fpn" or m.head not in ("fpn", "fpn_keypoint"):
-            raise NotImplementedError(
-                f"backbone={m.backbone!r} head={m.head!r}: the port covers the "
-                "FPN backbone with the FPN mask or keypoint head")
         dt = compute_dtype(m.dtype)
         self.acc_dtype = compute_dtype(m.roi_align_acc)
         self.cfg = cfg
-        self.extractor = FPNBackbone(m.fpn_channels, m.freeze_bn, dt, m.remat)
-        self.rpn_head = RPNHead(m.fpn_channels, 256, len(cfg.anchors.ratios), dt)
+        self.extractor = build_backbone(m.backbone, m.fpn_channels,
+                                        m.freeze_bn, dt, m.remat)
+        in_ch = m.fpn_channels if m.backbone == "fpn" else C4_CHANNELS
+        self.rpn_head = RPNHead(in_ch, 256, len(cfg.anchors.ratios), dt)
         self.head = build_head(cfg, dt)
         init_weights(self, seed)
         self.eval()
@@ -88,7 +100,7 @@ class MaskRCNN(nn.Module):
 
     @property
     def device(self) -> torch.device:
-        return self.extractor.conv_p2.weight.device
+        return self.rpn_head.conv.weight.device
 
     @property
     def spatial_scales(self):
@@ -110,51 +122,85 @@ class MaskRCNN(nn.Module):
         """→ (rpn_locs (B, A, 4), rpn_scores (B, A, 2))."""
         return self.rpn_head([f.permute(0, 3, 1, 2) for f in features])
 
-    def pool(self, features, rois, roi_batch_idx, roi_levels, out_size):
-        """Batched multilevel ROIAlign over flattened (B·R,) ROI slots."""
+    def roi_features(self, features):
+        """The maps the ROI heads pool from: the backbone's levels, or the
+        light head's thin map of its one level."""
+        if isinstance(self.head, LightHead):
+            return [self.head.thin_map(features[0])]
+        return features
+
+    def pool(self, roi_feats, rois, roi_batch_idx, roi_levels, out_size):
+        """Batched multilevel ROIAlign over flattened (B·R,) ROI slots of
+        ``roi_features``; differentiable with respect to them."""
         impl = self.cfg.model.roi_align
         return multilevel_roi_align(
-            features, rois, roi_batch_idx, roi_levels, out_size,
+            roi_feats, rois, roi_batch_idx, roi_levels, out_size,
             self.spatial_scales, impl=None if impl == "auto" else
             ("gather" if impl == "fused" else impl),
         )
 
-    def head_box(self, features, rois, roi_batch_idx, roi_levels):
+    def head_box(self, roi_feats, rois, roi_batch_idx, roi_levels):
         """Pass 1: pooled 7×7 → (locs, scores)."""
         s = self.head.roi_size_box
-        pooled = self.pool(features, rois, roi_batch_idx, roi_levels, (s, s))
-        locs, scores, _ = self.head(pooled)
-        return locs, scores
+        pooled = self.pool(roi_feats, rois, roi_batch_idx, roi_levels, (s, s))
+        return self.head.box(pooled)
 
-    def head_mask(self, features, rois, roi_batch_idx, roi_levels,
+    def head_mask(self, roi_feats, rois, roi_batch_idx, roi_levels,
                   class_idx=None):
-        """Pass 2: pooled 14×14 on refined boxes → mask logits, only each
-        ROI's ``class_idx`` channel when given (the mask head), or (R, 56,
-        56, K) heatmap logits (the keypoint head, which takes no
-        ``class_idx``)."""
+        """Pass 2: pooled on refined boxes → mask logits, only each ROI's
+        ``class_idx`` channel when given (the mask heads), or (R, 56, 56, K)
+        heatmap logits (the keypoint head, which takes no ``class_idx``)."""
         s = self.head.roi_size_mask
-        pooled = self.pool(features, rois, roi_batch_idx, roi_levels, (s, s))
+        pooled = self.pool(roi_feats, rois, roi_batch_idx, roi_levels, (s, s))
         return self.head.predict_mask(pooled, class_idx)
 
-    def head_train(self, features, rois_bn, levels_bn, n_pos: int,
+    def head_full(self, roi_feats, rois, roi_batch_idx, roi_levels,
+                  train: bool = False):
+        """Box and mask branches on the same ROIs → (locs, scores, every
+        class's mask logits); ``train`` reaches the Res5 head's BatchNorms,
+        as in JAX's ``head_full``."""
+        sb, sm = self.head.roi_size_box, self.head.roi_size_mask
+        args = (roi_feats, rois, roi_batch_idx, roi_levels)
+        pooled_box = self.pool(*args, (sb, sb))
+        pooled_mask = self.pool(*args, (sm, sm))
+        if isinstance(self.head, Res5Head):
+            return self.head(pooled_box, pooled_mask, train)
+        return self.head(pooled_box, pooled_mask)
+
+    def head_train(self, roi_feats, rois_bn, levels_bn, n_pos: int,
                    class_idx=None):
         """Train-path head over (B, n) ROI slots with positives FIRST: box
         branch on every slot, mask or keypoint branch on the (B, :n_pos)
-        prefix → (locs, scores, mask logits or heatmaps). Both branches
-        pool from one shared window per ROI (:func:`multilevel_roi_align_train`), whose backward is the
-        region-scatter kernel, accumulating in ``cfg.model.roi_align_acc``;
-        the other ROIAlign forms have no train path."""
+        prefix → (locs, scores, mask logits or heatmaps).
+
+        The FPN heads under ``roi_align`` ``"auto"``, ``"region"`` or
+        ``"fused"`` pool both branches from one shared window per ROI
+        (:func:`multilevel_roi_align_train`), whose backward is one
+        region-scatter launch accumulating in ``cfg.model.roi_align_acc``.
+        Otherwise (single-level heads; ``"gather"`` or ``"pallas"``) two
+        pools, over all slots for the box branch and over the prefix for the
+        mask branch, as JAX's ``head_train`` does; no ``train`` flag reaches
+        the head there, in JAX as here."""
         sb, sm = self.head.roi_size_box, self.head.roi_size_mask
-        impl = self.cfg.model.roi_align
-        if impl not in ("auto", "region", "fused"):
-            raise NotImplementedError(
-                f"roi_align={impl!r} has no backward in the port: train with "
-                "'auto', 'region' or 'fused'")
-        pooled_box, pooled_mask = multilevel_roi_align_train(
-            features, rois_bn, levels_bn, n_pos, (sb, sb), (sm, sm),
-            self.spatial_scales, acc_dtype=self.acc_dtype)
-        locs, scores = self.head.box(pooled_box)
-        return locs, scores, self.head.predict_mask(pooled_mask, class_idx)
+        fused = (self.cfg.model.roi_align in ("auto", "region", "fused")
+                 and len(roi_feats) > 1
+                 and isinstance(self.head, (FPNMaskHead, FPNKeypointHead)))
+        if fused:
+            pooled_box, pooled_mask = multilevel_roi_align_train(
+                roi_feats, rois_bn, levels_bn, n_pos, (sb, sb), (sm, sm),
+                self.spatial_scales, acc_dtype=self.acc_dtype)
+            locs, scores = self.head.box(pooled_box)
+            return locs, scores, self.head.predict_mask(pooled_mask, class_idx)
+        b, n = rois_bn.shape[:2]
+        images = torch.arange(b, dtype=torch.int32, device=rois_bn.device)
+        locs, scores = self.head_box(
+            roi_feats, rois_bn.reshape(b * n, 4), images.repeat_interleave(n),
+            levels_bn.reshape(b * n))
+        masks = self.head_mask(
+            roi_feats, rois_bn[:, :n_pos].reshape(b * n_pos, 4),
+            images.repeat_interleave(n_pos),
+            levels_bn[:, :n_pos].reshape(b * n_pos), class_idx)
+        return locs, scores, masks
 
     def forward(self, images, train: bool = False):
         features = self.extract(images, train)

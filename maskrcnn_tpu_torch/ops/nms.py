@@ -76,3 +76,21 @@ def nms_padded(
     indices, out_valid = indices[..., :n_out], out_valid[..., :n_out]
     indices = torch.where(out_valid, indices, torch.zeros_like(indices))
     return indices.to(torch.int32), out_valid
+
+
+def batched_nms_padded(
+    boxes: torch.Tensor,
+    scores: torch.Tensor,
+    class_ids: torch.Tensor,
+    iou_thresh: float,
+    n_out: int,
+    valid: torch.Tensor | None = None,
+    coord_bound: float = 4096.0,
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """Class-aware NMS in one pass (JAX ``batched_nms_padded``): each box
+    moves by ``class_id · 2·coord_bound`` on both axes, so boxes of different
+    classes never overlap. ``coord_bound`` must exceed every coordinate's
+    magnitude. Same arguments and results as :func:`nms_padded`, plus
+    ``class_ids`` (N,)."""
+    offset = class_ids.to(boxes.dtype)[:, None] * (2.0 * coord_bound)
+    return nms_padded(boxes + offset, scores, iou_thresh, n_out, valid)

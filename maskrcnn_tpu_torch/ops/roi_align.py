@@ -13,10 +13,21 @@ samples per output cell, averaged. Two forms compute it:
   gathers per sample — the test oracle, and what ``roi_align="gather"``
   selects.
 
-The train step pools its box and mask inputs from ONE shared window per
-ROI (:func:`multilevel_roi_align_train`): the forward kernel twice, and as
-the backward one launch of the region-scatter kernel of
-:mod:`maskrcnn_tpu_torch.kernels.region_scatter_cuda`.
+The FPN heads' train step pools its box and mask inputs from ONE shared
+window per ROI (:func:`multilevel_roi_align_train`): the forward kernel
+twice, and as the backward one launch of the region-scatter kernel of
+:mod:`maskrcnn_tpu_torch.kernels.region_scatter_cuda`. Every other pool
+that trains through a window geometry (single-level heads, and FPN heads
+under ``roi_align="pallas"``) is one :class:`_RegionPool`: the forward
+kernel, and as its backward ``Byᵀ·g·Bx`` then the region scatter. The
+gather form trains through plain autograd.
+
+The kernels take channels in multiples of 32 (``CHANNEL_TILE``). A pyramid
+of other widths (the light head's 490-channel thin map) is flattened for a
+single pool with zero channels up to the next multiple (512), as the JAX
+Pallas wrapper pads to its 128 lanes; the pool is sliced back to C, and
+autograd slices the feature gradient back through the flattening. The FPN
+pair's 256 channels need none.
 
 Features enter in the JAX layout, one ``(B, H, W, C)`` tensor per level,
 float32 or bfloat16; pooled output is ``(R, oh, ow, C)`` float32. With bf16
@@ -34,7 +45,7 @@ import numpy as np
 import torch
 
 from maskrcnn_tpu_torch.kernels.region_scatter_cuda import region_scatter
-from maskrcnn_tpu_torch.kernels.roi_align_cuda import roi_align_fwd
+from maskrcnn_tpu_torch.kernels.roi_align_cuda import CHANNEL_TILE, roi_align_fwd
 
 
 def _level_layout(features, widths=None):
@@ -48,14 +59,22 @@ def _level_layout(features, widths=None):
     return shapes, strides, offsets
 
 
-def flatten_pyramid(features, widths=None) -> torch.Tensor:
+def kernel_channels(c: int) -> int:
+    """C rounded up to the kernels' channel multiple."""
+    return -(-c // CHANNEL_TILE) * CHANNEL_TILE
+
+
+def flatten_pyramid(features, widths=None, channels=None) -> torch.Tensor:
     """Levels (B, H, W, C) → one (S, C) buffer, level-major then batch, with
-    each level's rows zero-padded to ``widths`` when given."""
-    c = features[0].shape[-1]
+    each level's rows zero-padded to ``widths`` and its channels to
+    ``channels`` when given."""
+    c = features[0].shape[-1] if channels is None else channels
     parts = []
     for i, f in enumerate(features):
-        if widths is not None and int(widths[i]) != f.shape[2]:
-            f = torch.nn.functional.pad(f, (0, 0, 0, int(widths[i]) - f.shape[2]))
+        pad_w = 0 if widths is None else int(widths[i]) - f.shape[2]
+        pad_c = c - f.shape[-1]
+        if pad_w or pad_c:
+            f = torch.nn.functional.pad(f, (0, pad_c, 0, pad_w))
         parts.append(f.reshape(-1, c))
     return torch.cat(parts, dim=0)
 
@@ -161,11 +180,37 @@ def window_starts(row_ids):
     return base, stride
 
 
-def region_pool(flat, row_ids, by, bx) -> torch.Tensor:
+class _RegionPool(torch.autograd.Function):
+    """One pool over one window per ROI (JAX ``_roi_align_core`` with its
+    custom VJP). Forward: the ROIAlign kernel; only the geometry is saved.
+    Backward: ``Byᵀ·g·Bx`` in float32, then one launch of the region-scatter
+    kernel with a float32 accumulator (JAX scatters the window rows into a
+    float32 buffer), cast to the feature dtype. Only ``flat`` gets a
+    gradient."""
+
+    @staticmethod
+    def forward(ctx, flat, base, stride, by, bx):
+        ctx.save_for_backward(base, stride, by, bx)
+        ctx.dims = (flat.shape[0], flat.dtype)
+        return roi_align_fwd(flat, base, stride, by, bx)
+
+    @staticmethod
+    def backward(ctx, g):
+        base, stride, by, bx = ctx.saved_tensors
+        s_rows, dtype = ctx.dims
+        d_reg = _d_regions(by, bx, g.contiguous(), torch.float32)
+        d_flat = region_scatter(d_reg, base, stride, s_rows, torch.float32)
+        return d_flat.to(dtype), None, None, None, None
+
+
+def region_pool(flat, row_ids, by, bx, channels=None) -> torch.Tensor:
     """``By @ flat[window] @ Bxᵀ`` through the forward kernel wrapper (the
-    hand-written kernel on a CUDA tensor, its plain version on the CPU)."""
-    return roi_align_fwd(flat.contiguous(), *window_starts(row_ids),
-                         by.contiguous(), bx.contiguous())
+    hand-written kernel on a CUDA tensor, its plain version on the CPU),
+    differentiable with respect to ``flat`` (:class:`_RegionPool`); the
+    output's channels cut to ``channels`` when given."""
+    out = _RegionPool.apply(flat.contiguous(), *window_starts(row_ids),
+                            by.contiguous(), bx.contiguous())
+    return out if channels is None else out[..., :channels]
 
 
 def _folded_window(shapes, t_span: int) -> tuple[int, int]:
@@ -180,8 +225,9 @@ def region_geometry(features, rois, roi_batch_idx, roi_levels, out_size,
                     spatial_scales, sampling_ratio=2):
     """The JAX region form's geometry (``ops/roi_align.py`` auto/region):
     ``t_span=20`` on a pyramid, and with every level width divisible by 8 the
-    x start folds to a multiple of 8 with a 32-wide window. Returns
-    (flat, row_ids, by, bx)."""
+    x start folds to a multiple of 8 with a 32-wide window; on one level the
+    window is the whole map, ``max(H, W) + 3`` rows. Returns (flat, row_ids,
+    by, bx); ``flat``'s channels are padded to :func:`kernel_channels`."""
     shapes, _, offsets = _level_layout(features)
     t_span = 20 if len(features) > 1 else int(shapes[0].max()) + 3
     fold, tx = _folded_window(shapes, t_span)
@@ -189,7 +235,8 @@ def region_geometry(features, rois, roi_batch_idx, roi_levels, out_size,
         shapes, offsets, rois, roi_batch_idx, roi_levels, out_size,
         spatial_scales, sampling_ratio, t_span, x_align=fold, t_span_x=tx,
     )
-    return flatten_pyramid(features), row_ids, by, bx
+    c = features[0].shape[-1]
+    return flatten_pyramid(features, channels=kernel_channels(c)), row_ids, by, bx
 
 
 def pallas_geometry(features, rois, roi_batch_idx, roi_levels, out_size,
@@ -197,7 +244,9 @@ def pallas_geometry(features, rois, roi_batch_idx, roi_levels, out_size,
     """The geometry of the JAX ``multilevel_roi_align_pallas``: with
     ``n = ceil(C/128)`` and ``a = 8 / gcd(n, 8)``, level widths pad to
     multiples of ``a``, x starts quantize to ``a`` and the square window
-    widens to ``t_eff`` (24 at C=256). Returns (flat, row_ids, by, bx)."""
+    widens to ``t_eff`` (24 at C=256, 22 at C=490, 20 at C=1024). Returns
+    (flat, row_ids, by, bx); ``flat``'s channels are padded to
+    :func:`kernel_channels`."""
     c = features[0].shape[-1]
     n_half = -(-c // 128)
     a = 8 // math.gcd(n_half, 8)
@@ -208,7 +257,7 @@ def pallas_geometry(features, rois, roi_batch_idx, roi_levels, out_size,
         shapes, offsets, rois, roi_batch_idx, roi_levels, out_size,
         spatial_scales, sampling_ratio, t_eff, x_align=a, row_strides=strides,
     )
-    return flatten_pyramid(features, w_pads), row_ids, by, bx
+    return flatten_pyramid(features, w_pads, kernel_channels(c)), row_ids, by, bx
 
 
 def pair_geometry(shapes, offsets, rois_bn, levels_bn, n_pos: int,
@@ -380,7 +429,8 @@ def multilevel_roi_align(features, rois, roi_batch_idx, roi_levels, out_size,
     ``impl``: None (auto: region on a pyramid, gather on one level),
     ``"region"``, ``"pallas"`` (region arithmetic in the window geometry of
     the JAX Pallas wrapper) or ``"gather"``. Region and pallas run the
-    forward kernel on CUDA tensors.
+    forward kernel on CUDA tensors and the region scatter in the backward;
+    gather is plain torch with autograd.
     """
     if len(features) != len(spatial_scales):
         raise ValueError("one spatial scale per level")
@@ -388,10 +438,11 @@ def multilevel_roi_align(features, rois, roi_batch_idx, roi_levels, out_size,
         impl = "region" if len(features) > 1 else "gather"
     args = (features, rois, roi_batch_idx, roi_levels, out_size,
             spatial_scales, sampling_ratio)
+    c = features[0].shape[-1]
     if impl == "region":
-        return region_pool(*region_geometry(*args))
+        return region_pool(*region_geometry(*args), channels=c)
     if impl == "pallas":
-        return region_pool(*pallas_geometry(*args))
+        return region_pool(*pallas_geometry(*args), channels=c)
     if impl == "gather":
         return roi_align_gather(*args)
     raise ValueError(f"unknown ROIAlign impl {impl!r}")

@@ -144,7 +144,8 @@ def make_train_step(cfg: Config, image_size: tuple[int, int] | None = None):
         # GT-class channel only
         class_idx = None if is_keypoint else (sample_pos.labels - 1).reshape(-1)
         roi_cls_locs, roi_scores, roi_masks = model.head_train(
-            features, sample.rois, sample.levels, n_pos_cap, class_idx)
+            model.roi_features(features), sample.rois, sample.levels,
+            n_pos_cap, class_idx)
 
         a = anchors.shape[0]
         b = rpn_locs.shape[0]

@@ -2,13 +2,20 @@
 ``state_dict``.
 
 Input is the ``{"params", "batch_stats"}`` tree as nested dicts of numpy
-arrays. Module names carry over with ``Conv_k`` → ``conv{k}`` and
+arrays, of any preset the port builds: the ResNet-50-FPN backbone, or the
+C4 backbone (ResNet-50 to res4); the RPN head; the FPN mask or keypoint
+head (``head/box``, ``head/mask``), the light head (the thin map's four
+convs under ``head/thin``, ``fc``, ``cls_loc``, ``score``, ``conv2``..
+``conv4``, ``deconv1``) or the Res5 head (res5 under ``head/res5/res5``,
+``conv1``, per-class ``cls_loc``, ``score``, ``deconv1``, ``conv2``).
+Module names carry over with ``Conv_k`` → ``conv{k}`` and
 ``Norm_k/BatchNorm_0`` → ``bn{k}``; leaves convert as follows:
 
 - conv kernels HWIO → OIHW;
-- dense kernels (in, out) → (out, in) (``fc1``'s rows are already in the
+- dense kernels (in, out) → (out, in) (the box branch's ``fc1`` and the
+  light head's ``fc``, 24,010 rows of a 7×7×490 pool, are already in the
   HWC order the port flattens in);
-- the mask and keypoint heads' 2×2/2 transposed conv, which the JAX module
+- every head's 2×2/2 transposed conv ``deconv1``, which the JAX module
   applies flipped: ``W[c, o, di, dj] = K[1-di, 1-dj, c, o]``;
 - the mask head's ``conv2_kernel`` (c_in, n_out) → ``conv2_weight`` (n_out,
   c_in); the keypoint head's ``conv2`` is a 1×1 conv like any other

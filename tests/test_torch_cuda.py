@@ -505,3 +505,52 @@ def test_keypoint_predict_on_the_card_matches_the_cpu(cuda):
     for name in ("boxes", "scores", "heatmaps"):
         g, w = getattr(got, name).cpu(), getattr(want, name)
         assert float((g - w).abs().max()) <= 1e-3 * max(1.0, float(w.abs().max())), name
+
+
+@pytest.mark.parametrize("c", [490, 1024])
+@pytest.mark.parametrize("impl", ["pallas", "region"])
+def test_single_pool_trains_through_both_kernels_as_on_the_cpu(cuda, c, impl):
+    """The single-pool train path (``_RegionPool``) on one C4 level: the
+    pool and the feature gradient on the card (B2 forward, B1 backward,
+    at C=490 padded to 512 or at C=1024) against the CPU's plain versions;
+    one launch of each kernel."""
+    from maskrcnn_tpu_torch.ops.roi_align import multilevel_roi_align
+
+    g = torch.Generator().manual_seed(c)
+    feats = torch.randn(2, 20, 24, c, generator=g)
+    y0, x0 = torch.rand(40, generator=g) * 240, torch.rand(40, generator=g) * 300
+    size = 16 + torch.rand(40, 2, generator=g) * 200
+    rois = torch.stack([y0, x0, y0 + size[:, 0], x0 + size[:, 1]], 1)
+    bi = torch.randint(0, 2, (40,), generator=g, dtype=torch.int32)
+    lv = torch.zeros(40, dtype=torch.int32)
+    cot = torch.randn(40, 7, 7, c, generator=g)
+    out = {}
+    for dev in ("cpu", cuda):
+        f = feats.to(dev).detach().requires_grad_()
+        roi_align_fwd.launches = region_scatter.launches = 0
+        pooled = multilevel_roi_align([f], rois.to(dev), bi.to(dev), lv.to(dev),
+                                      (7, 7), (1.0 / 16,), impl=impl)
+        (pooled * cot.to(dev)).sum().backward()
+        out[str(dev)] = pooled.detach().cpu(), f.grad.cpu()
+        launches = (roi_align_fwd.launches, region_scatter.launches)
+    assert launches == (1, 1)
+    for got, want in zip(out["cuda"], out["cpu"]):
+        assert got.shape == want.shape
+        err = float((got - want).abs().max()) / float(want.abs().max())
+        assert err <= 1e-5, err
+
+
+@pytest.mark.parametrize("preset", ["light_head", "c4_res5"])
+def test_c4_preset_pallas_step_launches_both_kernels_twice(cuda, preset):
+    """One ``roi_align="pallas"`` train step of each C4 preset at 256×320:
+    B2 and B1 twice each (the box pool and the mask pool), finite losses."""
+    cfg = cfg_lib._rep(cfg_lib.PRESETS[preset](), model=dict(roi_align="pallas"),
+                       train=dict(batch_size=2, image_size=(256, 320)),
+                       proposals=dict(n_train_pre_nms=1000, n_train_post_nms=256),
+                       sampler=dict(n_sample=64))
+    state = create_train_state(cfg, MaskRCNN(cfg, seed=0))
+    batch = SyntheticDetectionData(cfg, seed=0).batch(0)
+    roi_align_fwd.launches = region_scatter.launches = 0
+    m = make_train_step(cfg)(state, batch)
+    assert (roi_align_fwd.launches, region_scatter.launches) == (2, 2)
+    assert all(bool(torch.isfinite(v)) for v in m.values())

@@ -322,11 +322,3 @@ def test_generator_draws_are_seeded(run):
     c, _ = _one_update(run, seed=4)
     assert np.array_equal(a, b)
     assert not np.array_equal(a, c)
-
-
-@pytest.mark.parametrize("impl", ["gather", "pallas"])
-def test_only_the_shared_pool_trains(run, impl):
-    """The train step pools through the shared window pool, whose backward
-    is the region scatter; the other ROIAlign forms serve and do not train."""
-    with pytest.raises(NotImplementedError, match="no backward"):
-        _one_update(run, model=dict(roi_align=impl), seed=0)
