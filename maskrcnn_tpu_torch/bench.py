@@ -2,8 +2,9 @@
 GPU (counterpart of the JAX package's ``bench.py``).
 
     python -m maskrcnn_tpu_torch.bench --mode predict|train
-        [--preset fpn_mask|fpn_keypoint|light_head|c4_res5]
-        [--batch B] [--height 800] [--width 1024] [--steps 20]
+        [--preset fpn_mask|fpn_keypoint|light_head|c4_res5|tiny_test|
+                  darknet_keypoint]
+        [--batch B] [--height H] [--width W] [--steps 20]
         [--roi-align auto] [--dtype float32|bfloat16]
         [--roi-align-acc float32|bfloat16] [--remat] [--grad-accum N]
         [--momentum-dtype bfloat16] [--set SECTION.KEY=VALUE ...]
@@ -15,9 +16,13 @@ accumulator of the shared pool's backward, ``--remat`` checkpoints the
 backbone, ``--grad-accum`` splits a step into micro-batches,
 ``--momentum-dtype`` stores the momentum buffer in bf16, and ``--set``
 applies any config override (``--set model.freeze_bn=False`` trains the
-BatchNorms). The line records the settings it ran with.
+BatchNorms). The line records the settings it ran with. The image size
+is the preset's own bucket unless ``--height``/``--width`` say otherwise:
+800×1024 for the FPN and C4 presets, 256×320 for ``darknet_keypoint``,
+128×160 for ``tiny_test``.
 
-``--mode train`` (batch 2 unless given) takes optimizer steps on synthetic
+``--mode train`` (the preset's batch unless given: 2, or 8 for
+``darknet_keypoint``) takes optimizer steps on synthetic
 batches from seeded random weights (TF32 off) through
 :func:`maskrcnn_tpu_torch.train.step.make_train_step` and prints ONE JSON
 line: the median milliseconds per step after warm-up (CUDA events), steps
@@ -78,11 +83,16 @@ def predict_config(preset: str, batch: int, height: int, width: int,
                         model=dict(roi_align=roi_align))
 
 
+def image_size(args) -> tuple[int, int]:
+    """``--height``/``--width``, each the preset's own where not given."""
+    h, w = cfg_lib.PRESETS[args.preset]().train.image_size
+    return args.height or h, args.width or w
+
+
 def bench_config(args, batch: int) -> cfg_lib.Config:
     """The preset at the requested size with the command line's settings."""
     cfg = cfg_lib._rep(
-        predict_config(args.preset, batch, args.height, args.width,
-                       args.roi_align),
+        predict_config(args.preset, batch, *image_size(args), args.roi_align),
         model=dict(dtype=args.dtype, roi_align_acc=args.roi_align_acc,
                    remat=args.remat),
         train=dict(grad_accum_steps=args.grad_accum,
@@ -248,8 +258,9 @@ def percentile(times, q: float) -> float:
 
 
 def bench_train(args) -> dict:
-    batch = args.batch or 2
+    batch = args.batch or cfg_lib.PRESETS[args.preset]().train.batch_size
     cfg = bench_config(args, batch)
+    h, w = cfg.train.image_size
     state = create_train_state(cfg, MaskRCNN(cfg, seed=0))
     step = make_train_step(cfg)
     data = SyntheticDetectionData(cfg, seed=0)
@@ -267,8 +278,7 @@ def bench_train(args) -> dict:
     proposals = time_train_proposals(cfg, state.model, batches[0])
     ms = statistics.median(times)
     return {
-        "metric": f"train_images_per_s_{args.preset}_{args.height}x{args.width}"
-                  f"_b{batch}",
+        "metric": f"train_images_per_s_{args.preset}_{h}x{w}_b{batch}",
         "value": batch * 1e3 / ms,
         "unit": "images/s",
         "step_ms_p50": ms,
@@ -290,9 +300,11 @@ def main(argv=None):
     p.add_argument("--preset", default="fpn_mask")
     p.add_argument("--batch", type=int, default=0,
                    help="images per request or step (default: 1 predict, "
-                        "2 train)")
-    p.add_argument("--height", type=int, default=800)
-    p.add_argument("--width", type=int, default=1024)
+                        "the preset's batch train)")
+    p.add_argument("--height", type=int, default=None,
+                   help="image height (default: the preset's)")
+    p.add_argument("--width", type=int, default=None,
+                   help="image width (default: the preset's)")
     p.add_argument("--steps", type=int, default=20)
     p.add_argument("--roi-align", default="auto",
                    choices=["auto", "region", "gather", "pallas", "fused"],
@@ -329,6 +341,7 @@ def main(argv=None):
         return
     batch = args.batch or 1
     cfg = bench_config(args, batch)
+    h, w = cfg.train.image_size
     model = spread_class_scores(MaskRCNN(cfg, seed=0))
     predict = make_predict_fn(cfg, model)
     data = SyntheticRequests(cfg, seed=0)
@@ -338,8 +351,7 @@ def main(argv=None):
     profiled = profile_requests(predict, requests[n:]) if args.profile else {}
     pairs = passing_pairs(cfg, model, predict, requests[:4])
     print(json.dumps({
-        "metric": f"predict_p50_ms_{args.preset}_{args.height}x{args.width}"
-                  f"_b{batch}",
+        "metric": f"predict_p50_ms_{args.preset}_{h}x{w}_b{batch}",
         "value": percentile(times, 0.5),
         "unit": "ms",
         "p90_ms": percentile(times, 0.9),

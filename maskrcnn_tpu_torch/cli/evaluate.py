@@ -29,7 +29,7 @@ import json
 from maskrcnn_tpu_torch.cli.train import (
     build_config,
     category_filter,
-    check_coco_args,
+    check_data_args,
     coco_label_names,
     parse_buckets,
     prepare_device,
@@ -40,7 +40,7 @@ def main(argv=None) -> dict:
     p = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     p.add_argument("--preset", default="fpn_mask",
                    help="the training run's preset: fpn_mask, fpn_keypoint, "
-                        "light_head or c4_res5")
+                        "light_head, c4_res5, tiny_test or darknet_keypoint")
     p.add_argument("--weight", default=None,
                    help="checkpoint of the train CLI (parameters and buffers)")
     p.add_argument("--dataset", default="synthetic", choices=["synthetic", "coco"])
@@ -57,7 +57,7 @@ def main(argv=None) -> dict:
     p.add_argument("--label-file", default=None,
                    help="class names, one per line; sets model.n_fg_class "
                         "(default: data/label_coco.txt, none for the "
-                        "keypoint head)")
+                        "keypoint head and tiny_test)")
     p.add_argument("--seed", type=int, default=0,
                    help="the training run's seed: the batches are its "
                         "held-out stream, seed + 999")
@@ -71,7 +71,7 @@ def main(argv=None) -> dict:
                    help="also write a COCO results JSON (loadRes format) "
                         "over the whole --dataset coco split")
     args = p.parse_args(argv)
-    check_coco_args(p, args)
+    check_data_args(p, args)
     if args.dump_results and args.dataset != "coco":
         p.error("--dump-results needs --dataset coco (real image and "
                 "category ids)")

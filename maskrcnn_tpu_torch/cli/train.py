@@ -4,17 +4,21 @@
         [--iterations N] [--batch-size B] [--image-size HxW] [--lr LR] \\
         [--resume | --weight CKPT] [--snapshot-every N] [--log-every N] \\
         [--eval-every N --eval-batches N] [--label-file F] [--seed S] \\
-        [--dataset synthetic|coco --coco-root DIR --coco-split S \\
+        [--dataset synthetic|coco|depth --coco-root DIR --coco-split S \\
          --eval-split S --category-filter A,B --buckets HxW,HxW \\
-         --loader-workers N] [--set SECTION.KEY=VALUE ...] [--device cuda|cpu]
+         --loader-workers N --depth-manifest LIST] \\
+        [--set SECTION.KEY=VALUE ...] [--device cuda|cpu]
 
 Trains the preset's model (``fpn_mask``'s mask head, ``fpn_keypoint``'s
 keypoint head, ``light_head``'s Light-Head R-CNN head or ``c4_res5``'s Res5
-head on the C4 backbone) on the GPU unless ``--device cpu``, from the step-pure
-synthetic stream (``SyntheticDetectionData``, ``--seed``) or a COCO-format
-directory (``--dataset coco``: ``<root>/annotations/instances_<split>.json``
-or ``person_keypoints_<split>.json`` for the keypoint head, images under
-``<root>/<split>/``). ``--buckets`` sets ``train.image_buckets``: each COCO
+head on the C4 backbone, ``tiny_test``'s mask head or ``darknet_keypoint``'s
+keypoint head on the Darknet backbone) on the GPU unless ``--device cpu``,
+from the step-pure synthetic stream (``SyntheticDetectionData``,
+``--seed``), a COCO-format directory (``--dataset coco``:
+``<root>/annotations/instances_<split>.json`` or
+``person_keypoints_<split>.json`` for the keypoint head, images under
+``<root>/<split>/``) or depth frames (``--dataset depth``: a txt manifest
+of npz files, ``DepthKeypointDataset``). ``--buckets`` sets ``train.image_buckets``: each COCO
 image goes to the bucket that pads it least, and the run keeps one step
 and one predict per bucket shape. Writes ``<out>/args.json``
 (the flags and the effective config), ``<out>/log.jsonl`` (``main/*`` rows
@@ -23,11 +27,14 @@ evaluator) and full-state checkpoints ``<out>/checkpoints/step_<8 digits>.pt``
 every ``--snapshot-every`` steps and at the end. ``--resume`` restarts from
 the latest checkpoint exactly: the stream seeks to its step. The in-run
 evaluator (mask AP, or OKS keypoint AP for the keypoint head) reads a
-held-out stream, seed ``--seed + 999``: synthetic, or for COCO a loader
-without flips on ``--eval-split`` (default: the training split).
+held-out stream, seed ``--seed + 999``: synthetic, for COCO a loader
+without flips on ``--eval-split`` (default: the training split), and for
+depth a loader on the same manifest, augmented as the training one is (as
+in the JAX CLI).
 
 The class names come from ``--label-file`` (default ``data/label_coco.txt``,
-80 classes, except for the keypoint head, which keeps its preset's class)
+80 classes, except for the keypoint head and ``tiny_test``, which keep
+their preset's classes)
 and set ``model.n_fg_class``; ``--set`` is applied after them, so ``--set
 model.n_fg_class=3`` trains 3 classes (with the COCO file's category names
 when it has that many, else numbered names).
@@ -53,7 +60,6 @@ UNPORTED = {
     "pretrained_npz": "A.6 (weight import from chainer npz)",
     "steps_per_dispatch": "A.7 (chained dispatch is TPU plumbing; CUDA graphs are its analogue)",
 }
-UNPORTED_DATASETS = {"depth": "A.4 (the depth keypoint data)"}
 # the non-finite-loss trap reads the loss once every this many steps, so the
 # host does not wait for the device on every step
 TRAP_EVERY = 20
@@ -68,8 +74,9 @@ def parse_args(argv=None):
                         "FPN backbone with the mask head (fpn_mask) or the "
                         "keypoint head (fpn_keypoint), or the C4 backbone "
                         "with the light head (light_head) or the Res5 head "
-                        "(c4_res5); tiny_test and darknet_keypoint are not "
-                        "ported yet (ROADMAP A.4)")
+                        "(c4_res5), or the Darknet backbone with the mask "
+                        "head (tiny_test) or the keypoint head "
+                        "(darknet_keypoint)")
     p.add_argument("--out", default="result", help="output directory")
     p.add_argument("--iterations", type=int, default=None)
     p.add_argument("--lr", type=float, default=None)
@@ -102,10 +109,12 @@ def parse_args(argv=None):
                         "800x1024,1024x800 (train.image_buckets)")
     p.add_argument("--loader-workers", type=int, default=1,
                    help="COCO decode threads per batch")
+    p.add_argument("--depth-manifest", default=None,
+                   help="txt list of npz depth frames (--dataset depth)")
     p.add_argument("--label-file", default=None,
                    help="class names, one per line; sets model.n_fg_class "
                         "(default: data/label_coco.txt, none for the "
-                        "keypoint head)")
+                        "keypoint head and tiny_test)")
     p.add_argument("--seed", type=int, default=0)
     p.add_argument("--set", action="append", default=[], metavar="SEC.KEY=V",
                    help="config override, applied last, e.g. --set "
@@ -118,14 +127,17 @@ def parse_args(argv=None):
                    help="not ported yet")
     args = p.parse_args(argv)
     reject_unported(p, args, UNPORTED)
-    check_coco_args(p, args)
+    check_data_args(p, args)
     return args
 
 
-def check_coco_args(parser, args):
-    """``--dataset coco`` needs ``--coco-root``; ``--buckets`` must parse."""
+def check_data_args(parser, args):
+    """``--dataset coco`` needs ``--coco-root`` and ``--dataset depth``
+    ``--depth-manifest``; ``--buckets`` must parse."""
     if args.dataset == "coco" and not args.coco_root:
         parser.error("--dataset coco needs --coco-root")
+    if args.dataset == "depth" and not getattr(args, "depth_manifest", None):
+        parser.error("--dataset depth needs --depth-manifest")
     if args.buckets:
         try:
             parse_buckets(args.buckets)
@@ -156,11 +168,8 @@ def coco_label_names(names, loader, cfg):
 
 
 def reject_unported(parser, args, options: dict):
-    """Exit with an error naming the ROADMAP item for each given option (and
-    ``--dataset``) that the port does not have yet: never ignore one."""
-    if args.dataset in UNPORTED_DATASETS:
-        parser.error(f"--dataset {args.dataset}: not in the port yet, see "
-                     f"ROADMAP {UNPORTED_DATASETS[args.dataset]}")
+    """Exit with an error naming the ROADMAP item for each given option that
+    the port does not have yet: never ignore one."""
     for key, item in options.items():
         if getattr(args, key):
             parser.error(f"--{key.replace('_', '-')}: not in the port yet, "
@@ -170,8 +179,9 @@ def reject_unported(parser, args, options: dict):
 def build_config(preset: str, label_file: str | None, overrides: list[str],
                  train: dict | None = None):
     """(config, class names): the preset, the flag shortcuts in ``train``,
-    the label file (default the COCO names, none for the keypoint head) as
-    ``model.n_fg_class``, then ``--set``. Names that no longer match
+    the label file (default the COCO names, none for the keypoint head and
+    ``tiny_test``, as in the JAX CLIs) as ``model.n_fg_class``, then
+    ``--set``. Names that no longer match
     ``n_fg_class`` are dropped."""
     from maskrcnn_tpu_torch import config as cfg_lib
 
@@ -179,7 +189,8 @@ def build_config(preset: str, label_file: str | None, overrides: list[str],
     if train:
         cfg = cfg_lib._rep(cfg, train=train)
     keypoint = cfg_lib.apply_overrides(cfg, overrides).model.head == "fpn_keypoint"
-    if label_file is None and not keypoint and os.path.exists(DEFAULT_LABELS):
+    if (label_file is None and not keypoint and preset != "tiny_test"
+            and os.path.exists(DEFAULT_LABELS)):
         label_file = DEFAULT_LABELS
     names = None
     if label_file:
@@ -254,6 +265,11 @@ def main(argv=None):
         # the LR decays by epochs of this dataset
         cfg = cfg_lib._rep(cfg, train=dict(epoch_size=len(data)))
         label_names = coco_label_names(label_names, data, cfg)
+    elif args.dataset == "depth":
+        from maskrcnn_tpu_torch.data.depth import DepthKeypointDataset
+
+        data = DepthKeypointDataset(cfg, args.depth_manifest, seed=args.seed)
+        cfg = cfg_lib._rep(cfg, train=dict(epoch_size=len(data)))
     else:
         data = SyntheticDetectionData(cfg, seed=args.seed)
     keypoint = cfg.model.head == "fpn_keypoint"
@@ -316,7 +332,8 @@ def main(argv=None):
     def held_out():
         """A held-out stream of its own, read from its start every time (a
         loader apart from the training one, whose epoch cache the prefetch
-        thread uses)."""
+        thread uses). The depth loader keeps its default augmentation, as
+        the JAX CLI's does."""
         if args.dataset == "coco":
             if args.eval_split is None:
                 print("[eval] note: no --eval-split; evaluating a separate "
@@ -324,6 +341,9 @@ def main(argv=None):
             return iter(COCODetectionLoader(
                 args.coco_root, args.eval_split or args.coco_split, cfg,
                 seed=args.seed + 999, flip=False, category_filter=filt))
+        if args.dataset == "depth":
+            return iter(DepthKeypointDataset(cfg, args.depth_manifest,
+                                             seed=args.seed + 999))
         return iter(SyntheticDetectionData(cfg, seed=args.seed + 999))
 
     def run_eval(step_i):

@@ -1,13 +1,14 @@
 """The backbones (port of ``maskrcnn_tpu/models/backbones/fpn.py``): the FPN
-neck on ResNet-50, and the C4 backbone, ResNet-50 cut at res4 (one level
-of 1024 channels at stride 16), chosen by :func:`build_backbone`.
+neck on ResNet-50, the C4 backbone, ResNet-50 cut at res4 (one level of
+1024 channels at stride 16), and the Darknet backbone, five 3×3 convs (one
+level of 256 channels at stride 16), chosen by :func:`build_backbone`.
 
 Reference quirks kept: nearest ×2 upsample in the top-down path, lateral
 1×1 then a 3×3 conv after the sum, and P6 as a 1×1 stride-2 conv on P5
 (flax's SAME padding gives ``ceil(H/2)``; an unpadded stride-2 1×1 conv
 gives the same).
 
-``remat`` checkpoints either whole backbone (``torch.utils.checkpoint``, as the
+``remat`` checkpoints any whole backbone (``torch.utils.checkpoint``, as the
 JAX package wraps the backbone class in ``nn.remat``): only its input and
 outputs are kept for the backward, which runs the forward again. The
 recomputation holds the BatchNorm statistics, so a trainable BatchNorm
@@ -23,7 +24,11 @@ from torch import nn
 from torch.nn import functional as F
 from torch.utils.checkpoint import checkpoint
 
-from maskrcnn_tpu_torch.models.backbones.resnet import ResNet50, statistics_held
+from maskrcnn_tpu_torch.models.backbones.resnet import (
+    Norm,
+    ResNet50,
+    statistics_held,
+)
 from maskrcnn_tpu_torch.models.layers import Conv2d
 
 
@@ -99,6 +104,46 @@ class C4Backbone(nn.Module):
         return [self.resnet(x, train)[2]]
 
 
+class ConvBN(nn.Module):
+    """3×3 conv with bias → BatchNorm → ReLU. The BatchNorm always trains
+    (``Norm(frozen=False)``, as the reference's Darknet does), whatever
+    ``model.freeze_bn`` says. Named ``conv0``/``bn0`` after flax's
+    ``Conv_0``/``Norm_0``."""
+
+    def __init__(self, cin: int, out: int, dtype: torch.dtype = torch.float32):
+        super().__init__()
+        self.conv0 = Conv2d(cin, out, 3, padding=1, compute_dtype=dtype)
+        self.bn0 = Norm(out, frozen=False, dtype=dtype)
+
+    def forward(self, x, train: bool = False):
+        return F.relu(self.bn0(self.conv0(x), train))
+
+
+class DarknetBackbone(nn.Module):
+    """Five :class:`ConvBN` of 16, 32, 64, 128 and 256 channels, a 2×2/2
+    max-pool (floor, as flax's VALID pool) after each of the first four →
+    [one level] (NCHW), 256 channels at stride 16, in ``dtype``."""
+
+    feat_strides = (16,)
+    widths = (16, 32, 64, 128, 256)
+
+    def __init__(self, dtype: torch.dtype = torch.float32, remat: bool = False):
+        super().__init__()
+        self.remat = remat
+        for i, (cin, out) in enumerate(zip((3,) + self.widths, self.widths)):
+            self.add_module(f"conv{i + 1}", ConvBN(cin, out, dtype))
+
+    def forward(self, x, train: bool = False):
+        return _run(self, self._level, x, train)
+
+    def _level(self, x, train: bool):
+        for i in range(len(self.widths)):
+            x = getattr(self, f"conv{i + 1}")(x, train)
+            if i < len(self.widths) - 1:
+                x = F.max_pool2d(x, 2, 2)
+        return [x]
+
+
 def build_backbone(name: str, channels: int, frozen_bn: bool,
                    dtype: torch.dtype, remat: bool = False) -> nn.Module:
     """The backbone that ``cfg.model.backbone`` names."""
@@ -107,6 +152,5 @@ def build_backbone(name: str, channels: int, frozen_bn: bool,
     if name == "c4":
         return C4Backbone(frozen_bn, dtype, remat)
     if name == "darknet":
-        raise NotImplementedError(
-            "backbone='darknet' is not ported yet (ROADMAP.md A.4)")
+        return DarknetBackbone(dtype, remat)
     raise ValueError(f"unknown backbone {name!r}")

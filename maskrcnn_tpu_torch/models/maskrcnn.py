@@ -1,7 +1,10 @@
 """MaskRCNN facade: backbone + RPN + ROI head (port of
 ``maskrcnn_tpu/models/maskrcnn.py``): the FPN backbone with the FPN mask or
-keypoint head, and the C4 backbone with the light head (``light_head``) or
-the Res5 head (``c4_res5``).
+keypoint head, the C4 backbone with the light head (``light_head``) or
+the Res5 head (``c4_res5``), and the Darknet backbone with the FPN mask
+head (``tiny_test``) or keypoint head (``darknet_keypoint``) on its one
+level. The RPN and the heads take the backbone's width
+(:func:`backbone_channels`), which flax infers.
 
 Stages are methods — ``extract``, ``rpn``, ``roi_features``, ``pool``,
 ``head_box``, ``head_mask``, ``head_full``, ``head_train`` — that two-pass
@@ -41,7 +44,13 @@ from maskrcnn_tpu_torch.ops.roi_align import (
 from maskrcnn_tpu_torch.utils.device import resolve_device
 
 _BACKBONE_STRIDES = {"fpn": (4, 8, 16, 32, 64), "c4": (16,), "darknet": (16,)}
-C4_CHANNELS = 1024  # res4's width, the C4 backbone's one level
+
+
+def backbone_channels(cfg: Config) -> int:
+    """The width of every level the backbone gives: the FPN's
+    ``fpn_channels``, res4's 1024 (C4) or Darknet's 256."""
+    m = cfg.model
+    return {"fpn": m.fpn_channels, "c4": 1024, "darknet": 256}[m.backbone]
 
 
 def backbone_geometry(cfg: Config):
@@ -67,13 +76,14 @@ def pyramid_shapes(cfg: Config, image_size) -> list[tuple[int, int]]:
 
 def build_head(cfg: Config, dtype: torch.dtype) -> nn.Module:
     m = cfg.model
+    width = backbone_channels(cfg)
     if m.head == "fpn":
-        return FPNMaskHead(m.n_class, m.n_mask_convs, m.fpn_channels, dtype)
+        return FPNMaskHead(m.n_class, m.n_mask_convs, width, dtype)
     if m.head == "fpn_keypoint":
         return FPNKeypointHead(m.n_class, m.n_keypoints, m.n_mask_convs,
-                               m.fpn_channels, dtype, m.kp_upsample)
+                               width, dtype, m.kp_upsample)
     if m.head == "light":
-        return LightHead(m.n_class, m.compat_mask_bug, C4_CHANNELS, dtype)
+        return LightHead(m.n_class, m.compat_mask_bug, width, dtype)
     if m.head == "res5":
         return Res5Head(m.n_class, m.freeze_bn, dtype)
     raise ValueError(f"unknown head {m.head!r}")
@@ -91,8 +101,8 @@ class MaskRCNN(nn.Module):
         self.cfg = cfg
         self.extractor = build_backbone(m.backbone, m.fpn_channels,
                                         m.freeze_bn, dt, m.remat)
-        in_ch = m.fpn_channels if m.backbone == "fpn" else C4_CHANNELS
-        self.rpn_head = RPNHead(in_ch, 256, len(cfg.anchors.ratios), dt)
+        self.rpn_head = RPNHead(backbone_channels(cfg), 256,
+                                len(cfg.anchors.ratios), dt)
         self.head = build_head(cfg, dt)
         init_weights(self, seed)
         self.eval()

@@ -2,8 +2,11 @@
 ``state_dict``.
 
 Input is the ``{"params", "batch_stats"}`` tree as nested dicts of numpy
-arrays, of any preset the port builds: the ResNet-50-FPN backbone, or the
-C4 backbone (ResNet-50 to res4); the RPN head; the FPN mask or keypoint
+arrays, of any preset the port builds: the ResNet-50-FPN backbone, the
+C4 backbone (ResNet-50 to res4), or the Darknet backbone (five convs with
+bias under ``extractor/conv{1..5}/Conv_0`` and their trainable BatchNorms
+under ``extractor/conv{1..5}/Norm_0/BatchNorm_0``, scale and bias in
+``params``, mean and var in ``batch_stats``); the RPN head; the FPN mask or keypoint
 head (``head/box``, ``head/mask``), the light head (the thin map's four
 convs under ``head/thin``, ``fc``, ``cls_loc``, ``score``, ``conv2``..
 ``conv4``, ``deconv1``) or the Res5 head (res5 under ``head/res5/res5``,

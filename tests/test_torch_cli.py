@@ -167,7 +167,6 @@ def test_evaluate_reproduces_the_in_run_report(runs):
 
 
 @pytest.mark.parametrize("cli, argv, item", [
-    ("train", ["--dataset", "depth"], "A.4"),
     ("train", ["--data-parallel"], "A.5"),
     ("train", ["--pretrained-npz", "x.npz"], "A.6"),
     ("train", ["--steps-per-dispatch", "4"], "A.7"),

@@ -554,3 +554,71 @@ def test_c4_preset_pallas_step_launches_both_kernels_twice(cuda, preset):
     m = make_train_step(cfg)(state, batch)
     assert (roi_align_fwd.launches, region_scatter.launches) == (2, 2)
     assert all(bool(torch.isfinite(v)) for v in m.values())
+
+
+def _darknet_level_case(dev, r, out, seed=0):
+    """Pallas-geometry inputs on the Darknet level of a 256x320 image (one
+    16x20 level of 256 channels, a 24-cell window at C=256) for ``r``
+    proposal-like ROIs over batch 8."""
+    from maskrcnn_tpu_torch.ops.roi_align import pallas_geometry, window_starts
+
+    g = torch.Generator().manual_seed(seed)
+    feats = [torch.randn(8, 16, 20, 256, generator=g)]
+    side = torch.exp(torch.empty(r).uniform_(2.77, 5.77, generator=g))
+    y0, x0 = torch.rand(r, generator=g) * 240, torch.rand(r, generator=g) * 300
+    rois = torch.stack([y0, x0, (y0 + side).clamp(max=256),
+                        (x0 + side * 1.2).clamp(max=320)], 1)
+    bi = torch.randint(0, 8, (r,), generator=g, dtype=torch.int32)
+    lv = torch.zeros(r, dtype=torch.int32)
+    flat, row_ids, by, bx = pallas_geometry(feats, rois, bi, lv, (out, out),
+                                            (1.0 / 16,))
+    base, stride = window_starts(row_ids)
+    return [t.to(dev) for t in (flat, base, stride, by, bx)]
+
+
+@pytest.mark.parametrize("r,out", [(10, 14), (2048, 7)])
+def test_darknet_level_roi_align_matches_plain(cuda, r, out):
+    """B2 at the Darknet presets' shapes: 10 ROIs a request
+    (``darknet_keypoint``'s ``n_test_post_nms``) at 14x14, 2048 a b8 step
+    at 7x7, against the plain version within 1e-5 of its largest value."""
+    args = _darknet_level_case(cuda, r, out)
+    assert args[3].shape[2] == 24
+    got, want = roi_align_fwd(*args), roi_align_region_plain(*args)
+    assert got.shape == (r, out, out, 256)
+    assert float((got - want).abs().max()) <= 1e-5 * float(want.abs().max())
+
+
+def test_darknet_level_region_scatter_equals_ordered(cuda):
+    """B1 on 2048 train windows of the Darknet level (24x24x256): bit for
+    bit ``region_scatter_ordered`` and a second call, every element within
+    ``region_scatter_exact``'s rounding bound."""
+    from maskrcnn_tpu_torch.ops.roi_align import _d_regions
+
+    flat, base, stride, by, bx = _darknet_level_case(cuda, 2048, 7, seed=1)
+    g = torch.randn(2048, 7, 7, 256, device=cuda,
+                    generator=torch.Generator(device=cuda).manual_seed(2))
+    d_regs = _d_regions(by, bx, g, torch.float32)
+    args = (d_regs, base, stride, flat.shape[0], torch.float32)
+    got = region_scatter(*args)
+    assert torch.equal(got, region_scatter_ordered(*args))
+    assert torch.equal(got, region_scatter(*args))
+    exact, bound = region_scatter_exact(*args)
+    assert bool(((got.double() - exact).abs() <= bound).all())
+
+
+@pytest.mark.parametrize("preset", ["tiny_test", "darknet_keypoint"])
+def test_darknet_preset_pallas_paths_launch_both_kernels(cuda, preset):
+    """One ``roi_align="pallas"`` request (B2 twice) and train step (B2 and
+    B1 twice each) of each Darknet preset at its own size, finite."""
+    cfg = cfg_lib._rep(cfg_lib.PRESETS[preset](), model=dict(roi_align="pallas"),
+                       train=dict(batch_size=2))
+    model = MaskRCNN(cfg, seed=0)
+    roi_align_fwd.launches = region_scatter.launches = 0
+    det = make_predict_fn(cfg, model)(*SyntheticRequests(cfg, seed=0).batch(0))
+    assert (roi_align_fwd.launches, region_scatter.launches) == (2, 0)
+    assert bool(torch.isfinite(det.boxes).all())
+    state = create_train_state(cfg, model)
+    roi_align_fwd.launches = region_scatter.launches = 0
+    m = make_train_step(cfg)(state, SyntheticDetectionData(cfg, seed=0).batch(0))
+    assert (roi_align_fwd.launches, region_scatter.launches) == (2, 2)
+    assert all(bool(torch.isfinite(v)) for v in m.values())

@@ -5,10 +5,12 @@
   submodule of it) in ``sys.modules``, nor ``cv2`` or ``PIL``: the port
   needs no image library to import, serve or train from the synthetic
   stream (the card's machine has both, opencv-python-headless and pillow);
-- an AST scan of the same sources finds no such import, with one named
-  exception: the COCO loader (``maskrcnn_tpu_torch/data/coco.py``) imports
-  ``cv2`` inside its functions, to decode and resize images as the JAX
-  loader does;
+- an AST scan of the same sources finds no such import, with named
+  exceptions: the COCO and depth loaders (``data/coco.py``,
+  ``data/depth.py``) import ``cv2`` inside their functions, to decode and
+  resize images as the JAX loaders do, and so do the drawing code
+  (``utils/vis.py``), the demo and viewer CLIs and the two tools
+  (``tools/score_dump.py``, ``tools/bench_loader.py``);
 - without CUDA, the entry points raise instead of running on the CPU, and
   ``chip_smoke.py`` exits non-zero without printing a result.
 """
@@ -31,7 +33,11 @@ FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "orbax", "maskrcnn_tpu",
 
 
 # (source, module): imports allowed inside that source's functions only
-ALLOWED_IN_FUNCTIONS = {("maskrcnn_tpu_torch/data/coco.py", "cv2")}
+ALLOWED_IN_FUNCTIONS = {
+    (f"maskrcnn_tpu_torch/{path}", "cv2")
+    for path in ("data/coco.py", "data/depth.py", "utils/vis.py",
+                 "cli/demo.py", "cli/viewer.py", "tools/score_dump.py",
+                 "tools/bench_loader.py")}
 
 
 def _forbidden(name: str) -> bool:
@@ -105,7 +111,9 @@ def test_importing_the_port_loads_no_jax():
                 "eval.detection_eval", "data.prefetch", "utils.metrics",
                 "train.checkpoint", "cli.train", "cli.evaluate", "data.coco",
                 "data._native", "data.keypoints", "data.coco_synthetic",
-                "eval.export", "eval.keypoint_eval"):
+                "eval.export", "eval.keypoint_eval", "data.depth",
+                "data.depth_synthetic", "utils.vis", "cli.demo", "cli.viewer",
+                "tools.score_dump", "tools.bench_loader"):
         assert f"maskrcnn_tpu_torch.{mod}" in loaded
     assert [m for m in loaded if _forbidden(m)] == []
 
@@ -125,9 +133,12 @@ def test_port_sources_import_no_jax():
                     bad.append(f"{rel}:{node.lineno} {n}")
     assert len(_sources()) > 30
     assert bad == []
-    # the exception is used, and only where it is named
-    assert allowed and all(a.startswith("maskrcnn_tpu_torch/data/coco.py:")
-                           for a in allowed)
+    # each exception is used only where it is named
+    named = {path for path, _ in ALLOWED_IN_FUNCTIONS}
+    assert allowed and all(a.split(":")[0] in named for a in allowed)
+    assert {a.split(":")[0] for a in allowed} >= {
+        "maskrcnn_tpu_torch/data/coco.py", "maskrcnn_tpu_torch/data/depth.py",
+        "maskrcnn_tpu_torch/utils/vis.py"}
 
 
 def test_import_scan_sees_imports_at_every_depth():
