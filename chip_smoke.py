@@ -115,7 +115,28 @@ Phases, in order; any failure exits non-zero before the result is printed:
    on one of its frames with that checkpoint (``--benchmark 30``: the
    card's frames per second); ``tt``'s CLIs as in phase 11 at 128×160 and
    ``cli.demo`` writing 4 overlays from the step-4 checkpoint;
-18. the kernels line: each kernel on the inputs the main paths gave it,
+18. data parallelism over gloo on the one card (``dp-gloo``): two
+   processes (``parallel.data_parallel.spawn_ranks``) take one step of
+   ``fpn_mask`` at 800×1024 (global b2, one image a rank) and of
+   ``darknet_keypoint`` at 256×320 (global b8, four a rank, its BatchNorms
+   training through sync-BN), rank 0's weights broadcast, the RPN's shared
+   conv zeroed; losses and updates held to the 1-process step on the card
+   from the same weights and sampler seed as phase 6 holds the card to the
+   CPU, BatchNorm statistics within ``DP_STATS_TOL``, parameters equal in
+   bits on both ranks; each rank's B2 and B1 counts (2 and 1 for the FPN
+   pair); then two more steps each for the per-rank step time (two ranks
+   share the card: no scaling number);
+19. ``dp-nccl``: ``cli.train --data-parallel`` under ``torchrun
+   --nproc_per_node 1`` (one NCCL rank) on ``tiny_test`` for 4 steps,
+   resumed from step 2, against the same run without ``--data-parallel``;
+20. ``pretrained``: an npz emitted in chainer's layout for each backbone
+   (``fpn_mask``, ``c4_res5``, ``tiny_test``) loaded loosely on the card
+   and on the CPU, equal bit for bit, then one request with it on the card;
+21. ``diag``: ``tools/diag_checkpoint.py`` on phase 11's step-4 checkpoint
+   (B2 5, B1 1), and ``cli.train --profile-dir`` on ``tiny_test`` for 21
+   steps under ``roi_align="pallas"``: the trace of steps 11-20 holds 20
+   launches of each kernel;
+22. the kernels line: each kernel on the inputs the main paths gave it,
    held against its plain version, with both times, its bound (for the
    ROIAlign forward the work these inputs need, with the dense count beside
    it) and, where one PyTorch call computes the same function, that call's
@@ -123,8 +144,8 @@ Phases, in order; any failure exits non-zero before the result is printed:
    timed alone beside it, the matrix products that build its input too, and
    ``torch.profiler`` lists the device kernels of one region-scatter call in
    each dtype pair with their device times. The launches of the
-   evaluations and CLIs of phases 10, 11 and 17 are counted in
-   (``launches_by_path``). With ``--against``, the
+   evaluations and CLIs of phases 10, 11 and 17 and of phases 18-21 (each
+   DP rank's own counts) are counted in (``launches_by_path``). With ``--against``, the
    ROIAlign forward source of another checkout (same C interface) is built too and timed on the same
    inputs in the order other, this, this, other.
 
@@ -138,6 +159,7 @@ import argparse
 import importlib.metadata
 import importlib.util
 import json
+import os
 import shutil
 import statistics
 import subprocess
@@ -183,9 +205,13 @@ from maskrcnn_tpu_torch.kernels.build import nvcc_path
 from maskrcnn_tpu_torch.models.maskrcnn import MaskRCNN, pyramid_shapes
 from maskrcnn_tpu_torch.ops import roi_align as roi_align_ops
 from maskrcnn_tpu_torch.ops.levels import map_rois_to_fpn_levels
+from maskrcnn_tpu_torch.parallel import data_parallel as dp
+from maskrcnn_tpu_torch.tools import diag_checkpoint
 from maskrcnn_tpu_torch.train import step as step_mod
 from maskrcnn_tpu_torch.train.state import create_train_state
 from maskrcnn_tpu_torch.train.step import SamplerDraws, make_train_step
+from maskrcnn_tpu_torch.utils.chainer_npz import emit_model_npz
+from maskrcnn_tpu_torch.utils.convert_chainer import load_pretrained_npz
 from maskrcnn_tpu_torch.utils.device import card_name_and_power_limit
 
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM device memory
@@ -238,6 +264,12 @@ DARKNET = {"tt": ("tiny_test", (128, 160), 2, "evaluate"),
 DARKNET_LEVEL = (16, 20)  # the Darknet level of a 256x320 image, C=256
 N_DK_EVAL_BATCHES = 2  # darknet_keypoint OKS evaluation at 256x320 b1
 N_VIEWER_FRAMES = 30  # the viewer's --benchmark frames
+DP_GLOO = {"dp-gloo": ("fpn_mask", (800, 1024), 2),
+           "dp-gloo-dk": ("darknet_keypoint", (256, 320), 8)}  # tag: (preset,
+#   size, global batch) of the 2-process gloo step on the one card
+DP_TIMED_STEPS = 2  # per-rank steps timed after the compared one
+DP_STATS_TOL = 1e-4  # 2-rank vs 1-process running statistics, of
+#   max(1, |statistic|): sync-BN sums two ranks' float32 partial sums
 C4_CPU_SAMPLES = {"c4_res5": 64}  # sampled ROIs an image of the card-vs-CPU
 #   step: res5 and the 2048-wide 3x3 conv run on every ROI, about 5 GFLOP a
 #   ROI forward, so the CPU's step grows with the ROIs it samples
@@ -1042,37 +1074,51 @@ def phase_train_gpu_vs_cpu(seed: int, preset: str = "fpn_mask",
     if single:
         print(f"[{tag}] the card's step took the CPU's proposals")
     (got, got_up), (want, want_up) = runs["cuda"], runs["cpu"]
+    hold_step(tag, cfg, got, got_up, want, want_up, before, "GPU", "CPU")
+
+
+def hold_step(tag: str, cfg, got: dict, got_up: dict, want: dict, want_up: dict,
+              before: dict, name: str, ref: str):
+    """Fail unless one train step (``got``: its metrics, and each
+    parameter's update) equals the reference step (``want``) of the same
+    weights, batch and draws: the same ROI counts, each loss term within
+    ``TRAIN_LOSS_TOL`` relative, each update within ``TRAIN_UPDATE_TOL`` of
+    the step's largest and ``TRAIN_OWN_TOL`` of its own largest beyond two
+    float32 roundings of its weights. Parameters that move by rounding
+    alone (:func:`rounding_only`) must stay below their share of the step's
+    largest update instead."""
+    got_up, want_up = dict(got_up), dict(want_up)
     shares = rounding_only(cfg)
     unseen = {k: (got_up.pop(k), want_up.pop(k)) for k in shares}
     if (got["n_valid_rois"], got["n_pos_rois"]) != (want["n_valid_rois"],
                                                     want["n_pos_rois"]):
-        fail("GPU and CPU sampled different ROI counts")
-    for name, w in want.items():
-        if not abs(got[name] - w) <= TRAIN_LOSS_TOL * max(abs(w), 1e-30):
-            fail(f"GPU and CPU {name} differ: {got[name]} vs {w}")
+        fail(f"[{tag}] {name} and {ref} sampled different ROI counts")
+    for key, w in want.items():
+        if not abs(got[key] - w) <= TRAIN_LOSS_TOL * max(abs(w), 1e-30):
+            fail(f"[{tag}] {name} and {ref} {key} differ: {got[key]} vs {w}")
     largest = max(float(u.abs().max()) for u in want_up.values())
     for k, pair in unseen.items():
         noise = max(float(u.abs().max()) for u in pair)
-        print(f"[{tag}] {k}: update {noise:.3e} on card or CPU (rounding "
+        print(f"[{tag}] {k}: update {noise:.3e} in {name} or {ref} (rounding "
               f"noise, {noise / largest:.2e} of the largest)")
         if not noise <= shares[k] * largest:
             fail(f"{k} moved by {noise}: its true gradient is zero")
     worst = max(want_up, key=lambda k: float((got_up[k] - want_up[k]).abs().max()))
     err = float((got_up[worst] - want_up[worst]).abs().max())
-    print(f"[{tag}] GPU vs CPU parameter update: worst tensor {worst}, max abs "
-          f"{err:.3e} = {err / largest:.3e} of the largest update {largest:.3e}")
+    print(f"[{tag}] {name} vs {ref} parameter update: worst tensor {worst}, max "
+          f"abs {err:.3e} = {err / largest:.3e} of the largest update {largest:.3e}")
     if not err <= TRAIN_UPDATE_TOL * largest:
-        fail(f"GPU and CPU updates differ by {err / largest} of the largest")
+        fail(f"{name} and {ref} updates differ by {err / largest} of the largest")
     eps = torch.finfo(torch.float32).eps
     own = {k: float(u.abs().max()) for k, u in want_up.items()}
     over = {k: max(float((got_up[k] - u).abs().max())
                    - 2 * eps * float(before[k].abs().max()), 0.0)
             / max(own[k], 1e-30) for k, u in want_up.items()}
     worst = max(over, key=over.get)
-    print(f"[{tag}] GPU vs CPU, each tensor against its own update: worst "
+    print(f"[{tag}] {name} vs {ref}, each tensor against its own update: worst "
           f"{worst}, {over[worst]:.3e} of its largest update {own[worst]:.3e}")
     if not over[worst] <= TRAIN_OWN_TOL:
-        fail(f"GPU and CPU updates of {worst} differ by {over[worst]} of its own")
+        fail(f"{name} and {ref} updates of {worst} differ by {over[worst]} of its own")
 
 
 def quiet_rpn(model):
@@ -1281,7 +1327,7 @@ def resumed_steps(rows: dict, tag: str):
 
 
 def phase_cli(seed: int, preset: str = "fpn_mask", tag: str = "cli",
-              hw: str = "256x320", demo: int = 0):
+              hw: str = "256x320", demo: int = 0, after=None):
     """The CLIs in this process, in a temporary directory: ``cli.train
     --preset`` at ``hw`` b2 for 4 steps (snapshots at 2 and 4, an
     evaluation of 2 held-out batches at 4), the same run resumed from its
@@ -1289,7 +1335,7 @@ def phase_cli(seed: int, preset: str = "fpn_mask", tag: str = "cli",
     of steps 3 and 4 agree, the evaluation reproduces the in-run report and
     detections, and B2 and B1 launch as the steps and evaluations need.
     With ``demo``, ``cli.demo`` then writes that many overlays from the
-    step-4 checkpoint."""
+    step-4 checkpoint; ``after(path)`` is called on that checkpoint last."""
     common = ["--preset", preset, "--image-size", hw, "--batch-size", "2",
               "--iterations", "4", "--snapshot-every", "2", "--eval-every", "4",
               "--eval-batches", "2", "--log-every", "1", "--seed", str(seed)]
@@ -1347,6 +1393,9 @@ def phase_cli(seed: int, preset: str = "fpn_mask", tag: str = "cli",
                   f"{time.perf_counter() - t1:.1f} s")
             if len(paths) != demo or len(set(shapes)) != 1 or shapes[0] is None:
                 fail(f"cli.demo wrote {paths} ({shapes})")
+        if after:
+            evaluator.make_predict_fn = make
+            after(str(tmp / "a" / "checkpoints" / "step_00000004.pt"))
     finally:
         evaluator.make_predict_fn = make
         shutil.rmtree(tmp, ignore_errors=True)
@@ -1779,6 +1828,269 @@ def phase_viewer(weight: str, frame: str):
         fail(f"viewer wrote {out} at {size}, fps {viewer.fps_ema}")
 
 
+def dp_rank(rank: int, world: int, preset: str, hw, batch: int, seed: int,
+            steps: int) -> dict:
+    """One rank of the ``dp-gloo`` phase, on the card: rank 0's seeded
+    weights (the other rank starts from another seed) broadcast by
+    ``replicate``, the RPN's shared conv zeroed, one step on this rank's
+    rows of batch 0 (its metrics, parameters and buffers, and the kernels'
+    launches), then ``steps`` more, each timed alone (host clock around a
+    synchronised step)."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    cfg = predict_config(preset, batch, *hw)
+    model = quiet_rpn(MaskRCNN(cfg, seed=seed + rank))
+    dp.replicate(model)
+    start = dp.parameter_digest(model)
+    state = create_train_state(cfg, model, seed)
+    step = make_train_step(cfg)
+    data = SyntheticDetectionData(cfg, seed=seed)
+    batches = [dp.shard_rows(data.batch(i), rank, world) for i in range(steps + 1)]
+    torch.cuda.synchronize()
+    reset_launches()
+    metrics = {k: float(v) for k, v in step(state, batches[0]).items()}
+    torch.cuda.synchronize()
+    launches = read_launches()
+    after = {k: v.detach().cpu().clone() for k, v in model.state_dict().items()}
+    digest = dp.parameter_digest(model)
+    times = []
+    for b in batches[1:]:
+        t0 = time.perf_counter()
+        step(state, b)
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+    return {"rank_world": dp.rank_world(), "metrics": metrics, "launches": launches,
+            "state": after, "digest": digest, "start": start, "times": times,
+            "final": dp.parameter_digest(model)}
+
+
+def phase_dp_gloo(seed: int, preset: str, hw, batch: int, tag: str) -> dict:
+    """Two processes on the one card joined by gloo (which takes CUDA
+    tensors) take one step of ``preset`` at ``hw`` with the global ``batch``
+    split between them, from the same weights (the RPN's shared conv
+    zeroed, so every run proposes and samples the same ROIs) and the same
+    sampler seed as one step of the 1-process train step on the card: the
+    ranks' losses and updates are held to it as the card is held to the
+    CPU (:func:`hold_step`), their BatchNorm statistics within
+    ``DP_STATS_TOL``, and their parameters must be equal in bits. Each rank
+    counts its own kernel launches: the FPN pair's 2 and 1 a step. Then
+    ``DP_TIMED_STEPS`` more steps give the per-rank step time (two ranks
+    share one card: a functional number, not a scaling one)."""
+    cfg = predict_config(preset, batch, *hw)
+    _, per_step, scatters = pool_launches(cfg)
+    t0 = time.perf_counter()
+    model = quiet_rpn(MaskRCNN(cfg, seed=seed))
+    start = dp.parameter_digest(model)
+    before = {k: v.detach().cpu().clone() for k, v in model.state_dict().items()}
+    state = create_train_state(cfg, model, seed)
+    want = {k: float(v) for k, v in make_train_step(cfg)(
+        state, SyntheticDetectionData(cfg, seed=seed).batch(0)).items()}
+    single = {k: v.detach().cpu().clone() for k, v in model.state_dict().items()}
+    del model, state
+    torch.cuda.empty_cache()
+    ranks = dp.spawn_ranks(dp_rank, 2, preset, hw, batch, seed, DP_TIMED_STEPS)
+    secs = time.perf_counter() - t0
+    print(f"[{tag}] {preset} {hw[0]}x{hw[1]}, global b{batch} over 2 gloo "
+          f"processes on {torch.cuda.get_device_name(0)} ({batch // 2} images a "
+          f"rank), {cfg.model.n_fg_class} classes, freeze_bn "
+          f"{cfg.model.freeze_bn}: {secs:.1f} s for the phase")
+    if [r["rank_world"] for r in ranks] != [(0, 2), (1, 2)]:
+        fail(f"[{tag}] ranks {[r['rank_world'] for r in ranks]}")
+    if any(r["start"] != start for r in ranks):
+        fail(f"[{tag}] replicate did not give every rank rank 0's weights")
+    if ranks[0]["digest"] != ranks[1]["digest"] or ranks[0]["final"] != ranks[1]["final"]:
+        fail(f"[{tag}] the ranks' parameters differ after the steps")
+    stats = [k for k in single if k.endswith(("running_mean", "running_var"))]
+    cpu_before = {k: v for k, v in before.items() if k not in stats}
+    for r, out in enumerate(ranks):
+        print(f"[{tag}] rank {r}: " + ", ".join(
+            f"{k} {v:.6f}" for k, v in out["metrics"].items())
+            + f"; launches {out['launches']}")
+        if out["launches"] != {"roi_align_fwd": per_step, "region_scatter": scatters}:
+            fail(f"[{tag}] rank {r} launched {out['launches']}, expected "
+                 f"{per_step} forward and {scatters} region scatters")
+        got_up = {k: out["state"][k] - cpu_before[k] for k in cpu_before}
+        want_up = {k: single[k] - cpu_before[k] for k in cpu_before}
+        hold_step(f"{tag} rank {r}", cfg, out["metrics"], got_up, want, want_up,
+                  cpu_before, "2-rank", "1-process")
+    worst = max((float((ranks[0]["state"][k] - single[k]).abs().max())
+                 / max(1.0, float(single[k].abs().max())) for k in stats),
+                default=0.0)
+    moved = sum(not torch.equal(single[k], before[k]) for k in stats)
+    print(f"[{tag}] BatchNorm running statistics: {moved} of {len(stats)} moved; "
+          f"2-rank vs 1-process worst {worst:.3e} of max(1, |statistic|); "
+          f"parameters equal in bits on both ranks")
+    if worst > DP_STATS_TOL:
+        fail(f"[{tag}] running statistics differ by {worst}")
+    times = [t for out in ranks for t in out["times"]]
+    print(f"[{tag}] per-rank step {', '.join(f'{t:.1f}' for t in times)} ms "
+          f"(2 ranks sharing one card; host clock around synchronised steps) "
+          f"on {card_name_and_power_limit()}")
+    return {f"rank{r}": out["launches"] for r, out in enumerate(ranks)}
+
+
+def phase_dp_nccl(seed: int) -> None:
+    """``cli.train --data-parallel`` under ``torchrun --nproc_per_node 1``
+    (one NCCL rank on the card), ``tiny_test`` for 4 steps with snapshots at
+    2 and 4, resumed once from step 2, against the same run without
+    ``--data-parallel`` in this process: losses within ``CLI_LOSS_TOL``."""
+    common = ["--preset", "tiny_test", "--iterations", "4", "--snapshot-every", "2",
+              "--log-every", "1", "--seed", str(seed)]
+    root = Path(__file__).resolve().parent
+    tmp = Path(tempfile.mkdtemp(prefix="chip_smoke_nccl_"))
+    t0 = time.perf_counter()
+    try:
+        train_cli.main(["--out", str(tmp / "single"), *common])
+
+        def torchrun(out, *extra):
+            proc = subprocess.run(
+                [sys.executable, "-m", "torch.distributed.run", "--standalone",
+                 "--nproc_per_node", "1", "-m", "maskrcnn_tpu_torch.cli.train",
+                 "--data-parallel", "--out", str(out), *extra, *common],
+                cwd=root, env={**os.environ, "PYTHONPATH": str(root)},
+                capture_output=True, text=True, timeout=600)
+            if proc.returncode != 0:
+                fail(f"[dp-nccl] torchrun exited {proc.returncode}:\n"
+                     f"{proc.stdout[-2000:]}\n{proc.stderr[-3000:]}")
+            return proc.stdout
+
+        out = torchrun(tmp / "dp")
+        (tmp / "resumed" / "checkpoints").mkdir(parents=True)
+        shutil.copy(tmp / "dp" / "checkpoints" / "step_00000002.pt",
+                    tmp / "resumed" / "checkpoints")
+        torchrun(tmp / "resumed", "--resume")
+        rows = {d: [json.loads(line) for line in open(tmp / d / "log.jsonl")]
+                for d in ("single", "dp", "resumed")}
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    line = next((ln for ln in out.splitlines() if ln.startswith("[dp] rank 0 of 1")), "")
+    print(f"[dp-nccl] {line}")
+    if "over nccl" not in line:
+        fail(f"[dp-nccl] the CLI's rank line: {line!r}")
+    steps, worst = resumed_steps({"a": rows["dp"], "b": rows["resumed"]}, "dp-nccl")
+    single = {r["iteration"]: r for r in rows["single"] if "main/loss" in r}
+    off = max(abs(steps["a"][it][k] - v) / max(abs(v), 1e-30)
+              for it, row in single.items() for k, v in row.items()
+              if k.endswith("loss"))
+    print(f"[dp-nccl] tiny_test 4 steps under torchrun (1 NCCL rank) against "
+          f"the same run without --data-parallel: worst loss {off:.3e} "
+          f"relative; resumed from step 2: {worst:.3e}; "
+          f"{time.perf_counter() - t0:.1f} s for the phase")
+    if off > CLI_LOSS_TOL:
+        fail(f"[dp-nccl] the DP run's losses differ from the plain run's by {off}")
+
+
+PRETRAINED = {"fpn_mask": ("fpn", "fpn", (800, 1024)), "c4_res5": ("c4", "res5", (800, 1024)),
+              "tiny_test": ("darknet", "fpn", (128, 160))}  # preset: its npz
+#   (backbone, head) and the request's size
+
+
+def phase_pretrained(seed: int) -> dict:
+    """For each backbone an npz emitted in chainer's ``save_npz`` layout
+    (full serialized model, the preset's classes) is loaded loosely into a
+    model on the card and into one on the CPU: equal tensors, bit for bit;
+    then one request with those weights on the card (finite boxes and
+    scores)."""
+    launches = {}
+    tmp = Path(tempfile.mkdtemp(prefix="chip_smoke_npz_"))
+    try:
+        for preset, (backbone, head, hw) in PRETRAINED.items():
+            t0 = time.perf_counter()
+            cfg = predict_config(preset, 1, *hw)
+            path = tmp / f"{preset}.npz"
+            np.savez(path, **emit_model_npz(backbone, head,
+                                            n_fg_class=cfg.model.n_fg_class,
+                                            seed=seed))
+            models = {}
+            for device in ("cpu", "cuda"):
+                models[device] = MaskRCNN(cfg, device=device, seed=seed)
+                n = load_pretrained_npz(models[device], str(path), backbone, head,
+                                        cfg.model.n_mask_convs, verbose=False)
+            want = models["cpu"].state_dict()
+            unequal = [k for k, v in models["cuda"].state_dict().items()
+                       if not torch.equal(v.cpu(), want[k])]
+            if unequal:
+                fail(f"[pretrained] {preset}: card and CPU loads differ in {unequal[:5]}")
+            torch.cuda.synchronize()
+            reset_launches()
+            det = make_predict_fn(cfg, models["cuda"])(
+                *SyntheticRequests(cfg, seed=seed).batch(0))
+            torch.cuda.synchronize()
+            launches[preset] = read_launches()
+            finite = bool(torch.isfinite(det.boxes).all() and torch.isfinite(det.scores).all())
+            print(f"[pretrained] {preset}: {n[0]} parameter + {n[1]} statistic "
+                  f"tensors from a {backbone}/{head} npz, card equal to CPU on "
+                  f"all {len(want)}; one {hw[0]}x{hw[1]} request: "
+                  f"{int(det.valid.sum())} detections, finite {finite}; "
+                  f"{time.perf_counter() - t0:.1f} s")
+            if not finite or n[0] == 0:
+                fail(f"[pretrained] {preset}: loaded {n}, finite {finite}")
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    return {k: sum(v[k] for v in launches.values()) for k in read_launches()}
+
+
+def phase_diag(weight: str, preset: str, hw: str, seed: int) -> dict:
+    """``tools/diag_checkpoint.py`` on a checkpoint the CLI wrote: its four
+    stages on the card, with the kernels' launches (the train step's, the
+    box head's pool and predict's)."""
+    fwd, per_step, scatters = pool_launches(cfg_lib.PRESETS[preset]())
+    torch.cuda.synchronize()
+    reset_launches()
+    t0 = time.perf_counter()
+    stages = diag_checkpoint.main(["--weight", weight, "--preset", preset,
+                                   "--image-size", hw, "--batch", "2",
+                                   "--seed", str(seed)])
+    torch.cuda.synchronize()
+    launches = read_launches()
+    print(f"[diag] {preset} {hw} b2 on the step-4 checkpoint: loss "
+          f"{stages['loss']['loss']:.5f}, proposals "
+          f"{[p['valid'] for p in stages['proposals']]}, top foreground "
+          f"probability {[b and round(b['max_fg'], 4) for b in stages['box']]}, "
+          f"detections {[d['n'] for d in stages['detections']]}; launches "
+          f"{launches}; {time.perf_counter() - t0:.1f} s")
+    # the train step's, the box head's pool on the proposals (one), predict's
+    want = {"roi_align_fwd": per_step + 1 + fwd, "region_scatter": scatters}
+    if launches != want or not np.isfinite(list(stages["loss"].values())).all():
+        fail(f"[diag] launches {launches} (expected {want}), loss {stages['loss']}")
+    return launches
+
+
+def phase_profile(seed: int) -> dict:
+    """``cli.train --profile-dir`` on ``tiny_test`` for 21 steps under
+    ``roi_align="pallas"`` (its gather pool launches no kernel): the trace
+    of steps 11-20 must exist and name both kernels, 2 launches each a step."""
+    tmp = Path(tempfile.mkdtemp(prefix="chip_smoke_profile_"))
+    t0 = time.perf_counter()
+    try:
+        torch.cuda.synchronize()
+        reset_launches()
+        train_cli.main(["--preset", "tiny_test", "--iterations", "21",
+                        "--snapshot-every", "21", "--log-every", "21",
+                        "--seed", str(seed), "--set", "model.roi_align=pallas",
+                        "--profile-dir", str(tmp / "trace"), "--out", str(tmp / "run")])
+        torch.cuda.synchronize()
+        launches = read_launches()
+        path = tmp / "trace" / "trace_rank0.json"
+        size = path.stat().st_size
+        events = json.loads(path.read_text())["traceEvents"]
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    kernels = {name: sum(1 for e in events if e.get("cat") == "kernel"
+                         and name in e.get("name", ""))
+               for name in ("roi_align_fwd_kernel", "region_scatter_kernel")}
+    print(f"[profile] tiny_test 21 steps under pallas with --profile-dir: trace "
+          f"of {size / 2**20:.1f} MiB, {len(events)} events; device kernels "
+          f"in it {kernels}; launches {launches}; "
+          f"{time.perf_counter() - t0:.1f} s")
+    if kernels != {"roi_align_fwd_kernel": 20, "region_scatter_kernel": 20}:
+        fail(f"[profile] the trace holds {kernels}, expected 20 launches of each "
+             "kernel over steps 11-20")
+    if launches != {"roi_align_fwd": 42, "region_scatter": 42}:
+        fail(f"[profile] launches {launches}")
+    return launches
+
+
 def time_calls(kernel, plain, bound, calls, label: str) -> dict:
     """Hold ``kernel`` against ``plain`` on each of ``calls`` (a path's own
     inputs) and time both → sums over the calls."""
@@ -1992,7 +2304,10 @@ def main(argv=None):
                                       BF16_TRAIN_SETTINGS, tag="bf16-train")
     phase_bf16_gpu_vs_cpu(args.seed)
     paths["eval"] = (phase_eval(N_EVAL_BATCHES, args.seed), [], [], [])
-    paths["cli"] = (phase_cli(args.seed), [], [], [])
+    diag = {}
+    paths["cli"] = (phase_cli(args.seed, after=lambda weight: diag.update(
+        phase_diag(weight, "fpn_mask", "256x320", args.seed))), [], [], [])
+    paths["diag"] = (diag, [], [], [])
     launches, calls = phase_predict(N_REQUESTS, args.seed, preset="fpn_keypoint",
                                     tag="kp-predict")
     paths["kp_predict"] = (launches, calls, [], [])
@@ -2035,6 +2350,12 @@ def main(argv=None):
     paths["dk_depth_cli"] = (phase_depth_cli(args.seed), [], [], [])
     paths["tt_cli"] = (phase_cli(args.seed, "tiny_test", "tt-cli", "128x160",
                                  demo=4), [], [], [])
+    for tag, (preset, hw, batch) in DP_GLOO.items():
+        for rank, launches in phase_dp_gloo(args.seed, preset, hw, batch, tag).items():
+            paths[f"{tag}_{rank}"] = (launches, [], [], [])
+    phase_dp_nccl(args.seed)
+    paths["pretrained"] = (phase_pretrained(args.seed), [], [], [])
+    paths["profile"] = (phase_profile(args.seed), [], [], [])
     entries = phase_kernels_line(paths)
     for entry in entries:
         entry["coco_launches_by_shape"] = {k: v[entry["name"]]

@@ -7,7 +7,11 @@
         [--dataset synthetic|coco|depth --coco-root DIR --coco-split S \\
          --eval-split S --category-filter A,B --buckets HxW,HxW \\
          --loader-workers N --depth-manifest LIST] \\
+        [--pretrained-npz NPZ] [--profile-dir DIR] \\
         [--set SECTION.KEY=VALUE ...] [--device cuda|cpu]
+
+    torchrun --nproc_per_node N -m maskrcnn_tpu_torch.cli.train \\
+        --data-parallel ...
 
 Trains the preset's model (``fpn_mask``'s mask head, ``fpn_keypoint``'s
 keypoint head, ``light_head``'s Light-Head R-CNN head or ``c4_res5``'s Res5
@@ -43,6 +47,21 @@ Mid-run control channel: write JSON to ``<out>/commands.json``; it is read
 at the next logging boundary and renamed to ``commands.json.done``. Keys:
 ``{"snapshot": true}`` checkpoints now, ``{"eval": true}`` evaluates now,
 ``{"stop": true}`` checkpoints and exits.
+
+``--data-parallel`` runs one process per GPU under ``torchrun`` (NCCL; gloo
+with ``--device cpu``): ``--batch-size`` stays the global batch, each rank
+takes its rows of the synthetic or depth stream's global batches or, from
+COCO, batches of ``batch_size / world`` from its own slice of the images,
+and the step is the global batch's (:mod:`maskrcnn_tpu_torch.parallel.
+data_parallel`). The LR's epoch stays the whole dataset's. Rank 0 alone
+writes ``args.json``, the log and the checkpoints, runs the in-run
+evaluation while the others wait, and reads ``commands.json``, whose keys
+it broadcasts; every rank restores the same checkpoint on ``--resume``.
+``--pretrained-npz`` loads a chainer npz loosely (a full serialized model,
+or an ImageNet ResNet-50's backbone; rank 0 loads, then every rank takes
+its weights). ``--profile-dir`` writes a ``torch.profiler`` trace of steps
+10–20 (Chrome trace JSON, which Perfetto and TensorBoard read; rank 0's
+under DP).
 """
 
 from __future__ import annotations
@@ -56,8 +75,6 @@ import time
 # options of the JAX CLI that the port does not have yet, and the ROADMAP
 # item that brings each
 UNPORTED = {
-    "data_parallel": "A.5 (data parallelism)",
-    "pretrained_npz": "A.6 (weight import from chainer npz)",
     "steps_per_dispatch": "A.7 (chained dispatch is TPU plumbing; CUDA graphs are its analogue)",
 }
 # the non-finite-loss trap reads the loss once every this many steps, so the
@@ -121,13 +138,26 @@ def parse_args(argv=None):
                         "model.freeze_bn=False")
     p.add_argument("--device", default=None,
                    help="torch device (default: the GPU; cpu on purpose)")
-    p.add_argument("--data-parallel", action="store_true", help="not ported yet")
-    p.add_argument("--pretrained-npz", default=None, help="not ported yet")
+    p.add_argument("--data-parallel", action="store_true",
+                   help="one process per GPU; launch under torchrun "
+                        "--nproc_per_node N")
+    p.add_argument("--pretrained-npz", default=None,
+                   help="chainer npz to initialise from, loosely: a full "
+                        "serialized reference model or an ImageNet "
+                        "ResNet-50 (backbone only)")
+    p.add_argument("--profile-dir", default=None,
+                   help="write a torch.profiler trace of steps 10-20 here")
     p.add_argument("--steps-per-dispatch", type=int, default=None,
                    help="not ported yet")
     args = p.parse_args(argv)
     reject_unported(p, args, UNPORTED)
     check_data_args(p, args)
+    from maskrcnn_tpu_torch.parallel.data_parallel import launched_by_torchrun
+
+    if args.data_parallel and not launched_by_torchrun():
+        p.error("--data-parallel runs one process per GPU: launch it as "
+                "torchrun --nproc_per_node N -m maskrcnn_tpu_torch.cli.train "
+                "--data-parallel ...")
     return args
 
 
@@ -222,26 +252,7 @@ def prepare_device(device):
 def main(argv=None):
     args = parse_args(argv)
 
-    import numpy as np
-    import torch
-
-    from maskrcnn_tpu_torch import config as cfg_lib
-    from maskrcnn_tpu_torch.data.prefetch import Prefetcher
-    from maskrcnn_tpu_torch.data.synthetic import SyntheticDetectionData
-    from maskrcnn_tpu_torch.eval.evaluator import (
-        evaluate_dataset,
-        evaluate_keypoint_dataset,
-    )
-    from maskrcnn_tpu_torch.models.maskrcnn import MaskRCNN
-    from maskrcnn_tpu_torch.train.checkpoint import (
-        latest_checkpoint,
-        load_params_only,
-        restore_checkpoint,
-        save_checkpoint,
-    )
-    from maskrcnn_tpu_torch.train.state import create_train_state, lr_schedule
-    from maskrcnn_tpu_torch.train.step import make_train_step
-    from maskrcnn_tpu_torch.utils.metrics import MetricLogger
+    from maskrcnn_tpu_torch.parallel import data_parallel as dp
 
     train_over = {}
     if args.iterations is not None:
@@ -256,14 +267,61 @@ def main(argv=None):
         train_over["image_buckets"] = parse_buckets(args.buckets)
     cfg, label_names = build_config(args.preset, args.label_file, args.set,
                                     train_over)
+    device = prepare_device(args.device)
+    rank, world = 0, 1
+    if args.data_parallel:
+        device = dp.init_from_env(device)
+        rank, world = dp.rank_world()
+        if cfg.train.batch_size % world:
+            raise SystemExit(f"--data-parallel: the global batch "
+                             f"{cfg.train.batch_size} does not divide over "
+                             f"{world} ranks")
+        print(f"[dp] rank {rank} of {world} on {device} over "
+              f"{dp.dist.get_backend()}: "
+              f"{cfg.train.batch_size // world} of the global batch "
+              f"{cfg.train.batch_size}")
+    lead = rank == 0
+    try:
+        _train(args, cfg, label_names, device, rank, world, lead)
+    finally:
+        if args.data_parallel:
+            dp.dist.destroy_process_group()
+
+
+def _train(args, cfg, label_names, device, rank, world, lead):
+    import numpy as np
+    import torch
+
+    from maskrcnn_tpu_torch import config as cfg_lib
+    from maskrcnn_tpu_torch.data.prefetch import Prefetcher
+    from maskrcnn_tpu_torch.data.synthetic import SyntheticDetectionData
+    from maskrcnn_tpu_torch.eval.evaluator import (
+        evaluate_dataset,
+        evaluate_keypoint_dataset,
+    )
+    from maskrcnn_tpu_torch.models.maskrcnn import MaskRCNN
+    from maskrcnn_tpu_torch.parallel import data_parallel as dp
+    from maskrcnn_tpu_torch.train.checkpoint import (
+        latest_checkpoint,
+        load_params_only,
+        restore_checkpoint,
+        save_checkpoint,
+    )
+    from maskrcnn_tpu_torch.train.state import create_train_state, lr_schedule
+    from maskrcnn_tpu_torch.train.step import make_train_step
+    from maskrcnn_tpu_torch.utils.metrics import MetricLogger
+
     filt = category_filter(args.category_filter)
     if args.dataset == "coco":
         from maskrcnn_tpu_torch.data.coco import COCODetectionLoader
 
-        data = COCODetectionLoader(args.coco_root, args.coco_split, cfg,
-                                   seed=args.seed, category_filter=filt)
-        # the LR decays by epochs of this dataset
-        cfg = cfg_lib._rep(cfg, train=dict(epoch_size=len(data)))
+        # this rank's slice of the images, in batches of its rows
+        data = COCODetectionLoader(
+            args.coco_root, args.coco_split,
+            cfg_lib._rep(cfg, train=dict(batch_size=cfg.train.batch_size // world)),
+            seed=args.seed, category_filter=filt)
+        # the LR decays by epochs of the whole dataset
+        cfg = cfg_lib._rep(cfg, train=dict(epoch_size=data.epoch_images))
         label_names = coco_label_names(label_names, data, cfg)
     elif args.dataset == "depth":
         from maskrcnn_tpu_torch.data.depth import DepthKeypointDataset
@@ -274,14 +332,21 @@ def main(argv=None):
         data = SyntheticDetectionData(cfg, seed=args.seed)
     keypoint = cfg.model.head == "fpn_keypoint"
 
-    os.makedirs(args.out, exist_ok=True)
-    with open(os.path.join(args.out, "args.json"), "w") as f:
-        json.dump({"cli": vars(args), "config": dataclasses.asdict(cfg)}, f,
-                  indent=2, default=str)
+    if lead:
+        os.makedirs(args.out, exist_ok=True)
+        with open(os.path.join(args.out, "args.json"), "w") as f:
+            json.dump({"cli": vars(args), "config": dataclasses.asdict(cfg)},
+                      f, indent=2, default=str)
 
-    device = prepare_device(args.device)
-    state = create_train_state(cfg, MaskRCNN(cfg, device=device, seed=args.seed),
-                               seed=args.seed + 1)
+    model = MaskRCNN(cfg, device=device, seed=args.seed)
+    if args.pretrained_npz and lead:
+        from maskrcnn_tpu_torch.utils.convert_chainer import load_pretrained_npz
+
+        load_pretrained_npz(model, args.pretrained_npz, cfg.model.backbone,
+                            cfg.model.head, cfg.model.n_mask_convs)
+    if world > 1:
+        dp.replicate(model)
+    state = create_train_state(cfg, model, seed=args.seed + 1)
     ckpt_dir = os.path.join(args.out, "checkpoints")
     if args.resume:
         path = latest_checkpoint(ckpt_dir)
@@ -298,6 +363,8 @@ def main(argv=None):
         stream = data.iter_from(start, n_workers=args.loader_workers)
     else:
         stream = data.iter_from(start)
+        if world > 1:
+            stream = dp.shard_stream(stream, rank, world)
     batches = Prefetcher(stream, size=2)
     steps = {}  # one train step per bucket shape
 
@@ -307,25 +374,27 @@ def main(argv=None):
         return steps[hw]
 
     sched = lr_schedule(cfg)
-    if cfg.train.iterations // cfg.train.lr_decay_period > 3:
+    if lead and cfg.train.iterations // cfg.train.lr_decay_period > 3:
         print(f"[lr] WARNING: lr decays ×{cfg.train.lr_decay_factor} every "
               f"{cfg.train.lr_decay_period} steps — "
               f"{cfg.train.iterations // cfg.train.lr_decay_period} decays "
               "over this run (epoch-aware period on a small dataset?). "
               "Override with --set train.lr_decay_every_iters=N.")
-    logger = MetricLogger(args.out, print_every=args.log_every)
+    logger = MetricLogger(args.out, print_every=args.log_every) if lead else None
 
     def poll_commands():
+        """Rank 0 reads ``commands.json``; every rank gets what it read."""
+        cmds = {}
         path = os.path.join(args.out, "commands.json")
-        if not os.path.exists(path):
-            return {}
-        try:
-            with open(path) as f:
-                cmds = json.load(f)
-        except (OSError, json.JSONDecodeError):
-            return {}
-        os.replace(path, path + ".done")
-        return cmds if isinstance(cmds, dict) else {}
+        if lead and os.path.exists(path):
+            try:
+                with open(path) as f:
+                    cmds = json.load(f)
+                os.replace(path, path + ".done")
+            except (OSError, json.JSONDecodeError):
+                cmds = {}
+        cmds = cmds if isinstance(cmds, dict) else {}
+        return dp.broadcast_object(cmds) if world > 1 else cmds
 
     predict_cache = {}
 
@@ -333,20 +402,28 @@ def main(argv=None):
         """A held-out stream of its own, read from its start every time (a
         loader apart from the training one, whose epoch cache the prefetch
         thread uses). The depth loader keeps its default augmentation, as
-        the JAX CLI's does."""
+        the JAX CLI's does. COCO reads the whole split, whatever the rank."""
         if args.dataset == "coco":
             if args.eval_split is None:
                 print("[eval] note: no --eval-split; evaluating a separate "
                       "loader on the training split (training-set fit)")
             return iter(COCODetectionLoader(
                 args.coco_root, args.eval_split or args.coco_split, cfg,
-                seed=args.seed + 999, flip=False, category_filter=filt))
+                seed=args.seed + 999, flip=False, category_filter=filt,
+                split_by_rank=False))
         if args.dataset == "depth":
             return iter(DepthKeypointDataset(cfg, args.depth_manifest,
                                              seed=args.seed + 999))
         return iter(SyntheticDetectionData(cfg, seed=args.seed + 999))
 
     def run_eval(step_i):
+        """Rank 0 evaluates; the other ranks wait for it."""
+        if lead:
+            evaluate(step_i)
+        if world > 1:
+            dp.dist.barrier()
+
+    def evaluate(step_i):
         t0 = time.perf_counter()
         if keypoint:
             rep = evaluate_keypoint_dataset(cfg, state.model, held_out(),
@@ -371,21 +448,33 @@ def main(argv=None):
                   "after 1000+ steps — the model is training blind. Check "
                   "the gradient path, the predict path on a known-good "
                   "checkpoint, and the data. ***")
-        return rep
 
+    def snapshot(step_i):
+        if lead:
+            return save_checkpoint(ckpt_dir, state, step_i)
+
+    profiler, profiled = None, False
     it = start
     while it < cfg.train.iterations:
         batch = next(batches)
+        if (args.profile_dir and lead and not profiled and profiler is None
+                and it - start >= 10):
+            profiler = start_profiler(device)
         metrics = step_for(tuple(batch.images.shape[1:3]))(state, batch)
         step_i = it + 1
+        if profiler is not None and step_i - start >= 20:
+            print(f"[profile] steps {start + 11}-{step_i}: "
+                  f"{stop_profiler(profiler, device, args.profile_dir, rank)}")
+            profiler, profiled = None, True
         if step_i % TRAP_EVERY == 0:
+            # every rank reads the same summed loss, so all stop together
             loss = float(metrics["loss"])
             if not np.isfinite(loss):
-                path = save_checkpoint(ckpt_dir, state, step_i)
+                path = snapshot(step_i)
                 parts = {k: float(v) for k, v in metrics.items()}
                 raise SystemExit(f"[trap] non-finite loss at step {step_i}; "
                                  f"breakdown {parts}; state dumped to {path}")
-        if step_i % args.log_every == 0 or step_i == 1:
+        if lead and (step_i % args.log_every == 0 or step_i == 1):
             scalars = {k: float(v) for k, v in metrics.items()}
             # share of batch fetches that found the prefetch queue empty
             # (near 1: the host's data preparation bounds the run)
@@ -399,22 +488,50 @@ def main(argv=None):
                        n_images=cfg.train.batch_size * args.log_every,
                        lr=sched(step_i))
         if step_i % args.snapshot_every == 0 or step_i == cfg.train.iterations:
-            print(f"saved {save_checkpoint(ckpt_dir, state, step_i)}")
+            if lead:
+                print(f"saved {snapshot(step_i)}")
         if args.eval_every and step_i % args.eval_every == 0:
             run_eval(step_i)
         if step_i % args.log_every == 0:
             cmds = poll_commands()
-            if cmds.get("snapshot"):
-                print(f"[commands] snapshot at {step_i}: "
-                      f"{save_checkpoint(ckpt_dir, state, step_i)}")
+            if cmds.get("snapshot") and lead:
+                print(f"[commands] snapshot at {step_i}: {snapshot(step_i)}")
             if cmds.get("eval"):
                 run_eval(step_i)
             if cmds.get("stop"):
                 print(f"[commands] stop at {step_i}")
-                save_checkpoint(ckpt_dir, state, step_i)
+                snapshot(step_i)
                 break
         it = step_i
-    logger.close()
+    if logger is not None:
+        logger.close()
+
+
+def start_profiler(device):
+    """A started ``torch.profiler`` over the host and, on a GPU, the card
+    (after the steps before it have finished there)."""
+    import torch
+
+    activities = [torch.profiler.ProfilerActivity.CPU]
+    if device.type == "cuda":
+        torch.cuda.synchronize(device)
+        activities.append(torch.profiler.ProfilerActivity.CUDA)
+    profiler = torch.profiler.profile(activities=activities)
+    profiler.start()
+    return profiler
+
+
+def stop_profiler(profiler, device, out_dir: str, rank: int) -> str:
+    """Stop the profiler and write its Chrome trace → the file's path."""
+    import torch
+
+    if device.type == "cuda":
+        torch.cuda.synchronize(device)
+    profiler.stop()
+    os.makedirs(out_dir, exist_ok=True)
+    path = os.path.join(out_dir, f"trace_rank{rank}.json")
+    profiler.export_chrome_trace(path)
+    return path
 
 
 if __name__ == "__main__":

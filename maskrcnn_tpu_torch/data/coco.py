@@ -18,7 +18,9 @@ does, so a batch carries the JAX loader's pixels bit for bit; the rest of
 the port imports no cv2. Batches are the port's :class:`Batch` of numpy
 arrays on the host (images and mask crops uint8); the caller moves them to
 its device. The stream is a pure function of the step (:meth:`iter_from`).
-Under ``torch.distributed`` each process reads its own slice of the images.
+Under ``torch.distributed`` each process reads its own slice of the images,
+``ids[rank::world]`` (``split_by_rank=False`` reads them all, as an
+evaluation on one rank does), and ``epoch_images`` counts the whole split's.
 """
 
 from __future__ import annotations
@@ -32,6 +34,7 @@ import numpy as np
 from maskrcnn_tpu_torch.config import Config
 from maskrcnn_tpu_torch.data import _native
 from maskrcnn_tpu_torch.data.keypoints import flip_permutation, keypoint_names
+from maskrcnn_tpu_torch.parallel.data_parallel import rank_world
 from maskrcnn_tpu_torch.train.step import Batch
 
 
@@ -127,23 +130,14 @@ class COCOIndex:
         self.label_names = [self.cats[c]["name"] for c in self.cat_ids]
 
 
-def _process_slice() -> tuple[int, int]:
-    """(rank, world size) of this process under ``torch.distributed``, else
-    (0, 1)."""
-    import torch.distributed as dist
-
-    if dist.is_available() and dist.is_initialized():
-        return dist.get_rank(), dist.get_world_size()
-    return 0, 1
-
-
 class COCODetectionLoader:
     """Yields fixed-shape ``Batch``es for mask or keypoint training."""
 
     def __init__(self, root: str, split: str, cfg: Config, seed: int = 0,
                  keypoints: bool | None = None, flip: bool = True,
                  min_size: int = 600, max_size: int = 1000,
-                 category_filter: list[str] | None = None):
+                 category_filter: list[str] | None = None,
+                 split_by_rank: bool = True):
         self.root = root
         self.split = split
         self.cfg = cfg
@@ -189,8 +183,9 @@ class COCODetectionLoader:
             if usable:
                 self.ids.append(img_id)
         self.ids.sort()
-        rank, world = _process_slice()
-        if world > 1:
+        self.epoch_images = len(self.ids)  # over every rank
+        rank, world = rank_world()
+        if world > 1 and split_by_rank:
             self.ids = self.ids[rank::world]
 
     def __len__(self):

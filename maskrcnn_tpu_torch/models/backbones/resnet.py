@@ -26,6 +26,7 @@ from torch import nn
 from torch.nn import functional as F
 
 from maskrcnn_tpu_torch.models.layers import Conv2d
+from maskrcnn_tpu_torch.parallel.data_parallel import all_reduce_sum
 
 
 class Norm(nn.Module):
@@ -40,7 +41,11 @@ class Norm(nn.Module):
     parameters either way, as flax's ``scale``/``bias`` are, so training
     gives them gradients and weight decay. The output is cast to ``dtype``.
     ``update_stats`` is cleared while a checkpointed backbone recomputes its
-    forward, so the statistics move once per forward."""
+    forward, so the statistics move once per forward. ``sync`` (set by
+    :func:`batch_statistics_synced` under data parallelism) makes the batch
+    statistics those of the global batch: the float32 sums ``(Σx, Σx², n)``
+    are summed over the ranks, forward and backward, before the mean and
+    the variance, so ranks holding different H×W weigh by their counts."""
 
     momentum = 0.9
 
@@ -49,6 +54,7 @@ class Norm(nn.Module):
         super().__init__()
         self.frozen, self.dtype, self.eps = frozen, dtype, eps
         self.update_stats = True
+        self.sync = False
         self.weight = nn.Parameter(torch.ones(channels))
         self.bias = nn.Parameter(torch.zeros(channels))
         self.register_buffer("running_mean", torch.zeros(channels))
@@ -59,8 +65,16 @@ class Norm(nn.Module):
             mean, var = self.running_mean, self.running_var
         else:
             xf = x.float()
-            mean = xf.mean(dim=(0, 2, 3))
-            var = torch.clamp((xf * xf).mean(dim=(0, 2, 3)) - mean * mean, min=0.0)
+            if self.sync:
+                c = xf.shape[1]
+                sums = all_reduce_sum(torch.cat([
+                    xf.sum(dim=(0, 2, 3)), (xf * xf).sum(dim=(0, 2, 3)),
+                    xf.new_full((1,), float(xf.numel() // c))]))
+                mean, mean_sq = sums[:c] / sums[-1], sums[c:2 * c] / sums[-1]
+            else:
+                mean = xf.mean(dim=(0, 2, 3))
+                mean_sq = (xf * xf).mean(dim=(0, 2, 3))
+            var = torch.clamp(mean_sq - mean * mean, min=0.0)
             if self.update_stats:
                 with torch.no_grad():
                     m = self.momentum
@@ -72,17 +86,31 @@ class Norm(nn.Module):
 
 
 @contextlib.contextmanager
-def statistics_held(module: nn.Module):
-    """Inside, no :class:`Norm` of ``module`` moves its running statistics:
-    for the recomputation of a checkpointed forward."""
+def _norms_flagged(module: nn.Module, flag: str, value: bool):
+    """Inside, every :class:`Norm` of ``module`` has ``flag`` set to
+    ``value``; after, to ``not value``."""
     norms = [m for m in module.modules() if isinstance(m, Norm)]
     for m in norms:
-        m.update_stats = False
+        setattr(m, flag, value)
     try:
         yield
     finally:
         for m in norms:
-            m.update_stats = True
+            setattr(m, flag, not value)
+
+
+def statistics_held(module: nn.Module):
+    """Inside, no :class:`Norm` of ``module`` moves its running statistics:
+    for the recomputation of a checkpointed forward."""
+    return _norms_flagged(module, "update_stats", False)
+
+
+def batch_statistics_synced(module: nn.Module):
+    """Inside, every trainable :class:`Norm` of ``module`` in training mode
+    takes its batch statistics over all ranks (sync-BN): the forward and
+    the backward of a data-parallel step run in here. Frozen or evaluating
+    ``Norm``s never reduce."""
+    return _norms_flagged(module, "sync", True)
 
 
 class Bottleneck(nn.Module):

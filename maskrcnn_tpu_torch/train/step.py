@@ -15,12 +15,26 @@ its own valid counts. The backbone runs in training mode: with
 ``model.freeze_bn=False`` its BatchNorms normalise by batch statistics and
 move their running statistics in place, once per micro-batch, so the
 statistics chain from one micro-batch to the next as JAX's scan carries
-them. Losses are float32 whatever ``model.dtype``. Data parallelism and
-chained dispatch are not here.
+them. Losses are float32 whatever ``model.dtype``.
+
+Under data parallelism (a process group of W ranks when the step is built,
+:mod:`maskrcnn_tpu_torch.parallel.data_parallel`) ``cfg.train.batch_size``
+is the global batch and each rank is handed its b = B/W rows. Each rank
+draws the global (B, 2, n) sampler tables from ``state.generator`` and
+takes rows ``[rank·b, (rank+1)·b)``, as JAX slices its global key table, so
+the generator advances alike on every rank. The losses divide by counts
+summed over the ranks, trainable BatchNorms take global batch statistics
+(sync-BN), and after the backward the gradients, the loss terms and the ROI
+counts are summed over the ranks (JAX's ``psum``, not ``pmean``); with
+``grad_accum_steps`` the micro-gradients are averaged first, each
+micro-batch dividing by its own global counts. Then the optimizer steps,
+and the running statistics are averaged over the ranks. Chained dispatch is
+not here.
 """
 
 from __future__ import annotations
 
+import contextlib
 from typing import NamedTuple
 
 import torch
@@ -31,7 +45,9 @@ from maskrcnn_tpu_torch.models.maskrcnn import (
     backbone_geometry,
     pyramid_shapes,
 )
+from maskrcnn_tpu_torch.models.backbones.resnet import batch_statistics_synced
 from maskrcnn_tpu_torch.models.rpn import anchors_for, generate_proposals
+from maskrcnn_tpu_torch.parallel import data_parallel as dp
 from maskrcnn_tpu_torch.targets.anchor_targets import anchor_targets
 from maskrcnn_tpu_torch.targets.proposal_targets import (
     ProposalTargets,
@@ -94,6 +110,11 @@ def make_train_step(cfg: Config, image_size: tuple[int, int] | None = None):
     if cfg.train.batch_size % accum != 0:
         raise ValueError(f"batch_size {cfg.train.batch_size} not divisible by "
                          f"grad_accum_steps {accum}")
+    rank, world = dp.rank_world()
+    parallel = world > 1
+    if cfg.train.batch_size % world != 0:
+        raise ValueError(f"batch_size {cfg.train.batch_size} not divisible by "
+                         f"the world size {world}")
     schedule = lr_schedule(cfg)
     anchors_on = {}
 
@@ -151,21 +172,23 @@ def make_train_step(cfg: Config, image_size: tuple[int, int] | None = None):
         b = rpn_locs.shape[0]
         rpn_loc_loss = L.fast_rcnn_loc_loss(
             rpn_locs.reshape(b * a, 4), at.locs.reshape(b * a, 4),
-            at.labels.reshape(b * a), sigma=3.0)
+            at.labels.reshape(b * a), sigma=3.0, global_count=parallel)
         rpn_cls_loss = L.softmax_ce_ignore(
-            rpn_scores.reshape(b * a, 2), at.labels.reshape(b * a))
+            rpn_scores.reshape(b * a, 2), at.labels.reshape(b * a), parallel)
         roi_loc_loss = L.fast_rcnn_loc_loss(
             L.select_roi_locs(roi_cls_locs, cls_labels),
-            sample.locs.reshape(-1, 4), cls_labels, sigma=1.0)
-        roi_cls_loss = L.softmax_ce_ignore(roi_scores, cls_labels)
+            sample.locs.reshape(-1, 4), cls_labels, sigma=1.0,
+            global_count=parallel)
+        roi_cls_loss = L.softmax_ce_ignore(roi_scores, cls_labels, parallel)
         s = cfg.model.mask_size
         if is_keypoint:
             mask_loss = L.keypoint_ce_loss(
-                roi_masks, targets.reshape(-1, targets.shape[-1]), pos_flat)
+                roi_masks, targets.reshape(-1, targets.shape[-1]), pos_flat,
+                parallel)
         else:
             mask_loss = L.sigmoid_mask_loss(
                 roi_masks, targets.reshape(-1, s, s),
-                sample_pos.labels.reshape(-1), pos_flat)
+                sample_pos.labels.reshape(-1), pos_flat, parallel)
         total = (rpn_loc_loss + rpn_cls_loss + roi_loc_loss + roi_cls_loss
                  + mask_loss)
         counts = torch.stack([sample.valid.sum(),
@@ -183,21 +206,29 @@ def make_train_step(cfg: Config, image_size: tuple[int, int] | None = None):
         batch = _map(lambda x: torch.as_tensor(x, device=dev), batch)
         b = batch.images.shape[0]
         if b % accum != 0:
-            raise ValueError(f"batch {b} not divisible by grad_accum_steps "
-                             f"{accum}")
+            raise ValueError(
+                f"batch {b} not divisible by grad_accum_steps {accum}"
+                + (f" (global batch {cfg.train.batch_size} over {world} "
+                   "ranks: the local batch must split evenly into "
+                   "micro-batches)" if parallel else ""))
         if draws is None:
+            # the global table, then this rank's rows of it
             n_cand = cfg.proposals.n_train_post_nms + batch.gt_boxes.shape[1]
+            rows = slice(rank * b, (rank + 1) * b)
             draws = SamplerDraws(
-                torch.rand((b, 2, n_cand), generator=state.generator, device=dev),
-                torch.rand((b, 2, anchors.shape[0]), generator=state.generator,
-                           device=dev))
+                torch.rand((b * world, 2, n_cand), generator=state.generator,
+                           device=dev)[rows],
+                torch.rand((b * world, 2, anchors.shape[0]),
+                           generator=state.generator, device=dev)[rows])
         else:
             draws = SamplerDraws(*(torch.as_tensor(x, device=dev) for x in draws))
 
         state.optimizer.zero_grad(set_to_none=True)
         micro = b // accum
         bds, counts = [], []
-        with torch.enable_grad():
+        synced = (batch_statistics_synced(model) if parallel
+                  else contextlib.nullcontext())
+        with torch.enable_grad(), synced:
             for i in range(accum):
                 rows = slice(i * micro, (i + 1) * micro)
                 bd, cnt = loss_fn(model, _map(lambda x: x[rows], batch),
@@ -206,16 +237,23 @@ def make_train_step(cfg: Config, image_size: tuple[int, int] | None = None):
                 bd.loss.backward()
                 bds.append(torch.stack(bd).detach())
                 counts.append(cnt)
+        grads = [p.grad for p in model.parameters() if p.grad is not None]
         if accum > 1:
-            torch._foreach_div_(
-                [p.grad for p in model.parameters() if p.grad is not None],
-                float(accum))
+            torch._foreach_div_(grads, float(accum))
+        bd = torch.stack(bds).mean(dim=0)
+        count = torch.stack(counts).sum(dim=0)
+        if parallel:
+            totals = torch.cat([bd.double(), count.double()])
+            dp.all_reduce_sum_(grads + [totals])
+            bd, count = totals[:len(bds[0])].float(), totals[len(bds[0]):].long()
         for group in state.optimizer.param_groups:
             group["lr"] = schedule(state.step)
         state.optimizer.step()
         state.step += 1
-        bd = L.LossBreakdown(*torch.stack(bds).mean(dim=0))
-        n_valid, n_pos = torch.stack(counts).sum(dim=0)
-        return {**bd._asdict(), "n_valid_rois": n_valid, "n_pos_rois": n_pos}
+        if parallel:
+            dp.average_running_statistics(model)
+        n_valid, n_pos = count
+        return {**L.LossBreakdown(*bd)._asdict(), "n_valid_rois": n_valid,
+                "n_pos_rois": n_pos}
 
     return train_step

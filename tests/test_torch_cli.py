@@ -167,8 +167,6 @@ def test_evaluate_reproduces_the_in_run_report(runs):
 
 
 @pytest.mark.parametrize("cli, argv, item", [
-    ("train", ["--data-parallel"], "A.5"),
-    ("train", ["--pretrained-npz", "x.npz"], "A.6"),
     ("train", ["--steps-per-dispatch", "4"], "A.7"),
 ])
 def test_unported_options_exit_naming_their_roadmap_item(cli, argv, item, capsys):

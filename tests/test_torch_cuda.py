@@ -622,3 +622,100 @@ def test_darknet_preset_pallas_paths_launch_both_kernels(cuda, preset):
     m = make_train_step(cfg)(state, SyntheticDetectionData(cfg, seed=0).batch(0))
     assert (roi_align_fwd.launches, region_scatter.launches) == (2, 2)
     assert all(bool(torch.isfinite(v)) for v in m.values())
+
+
+# ---- data parallelism and weight import on the card --------------------------
+
+DP_CASES = {  # preset → (config changes, each rank's (B2, B1) launches a step)
+    "fpn_mask": (dict(model=dict(n_fg_class=3),
+                      proposals=dict(n_train_pre_nms=256, n_train_post_nms=64),
+                      sampler=dict(n_sample=32),
+                      train=dict(batch_size=2, image_size=(128, 160))), (2, 1)),
+    "tiny_test": (dict(model=dict(roi_align="pallas"), train=dict(batch_size=4)),
+                  (2, 2)),
+}
+
+
+def _dp_cfg(preset):
+    return cfg_lib._rep(cfg_lib.PRESETS[preset](), **DP_CASES[preset][0])
+
+
+def _quiet(model):
+    with torch.no_grad():
+        model.rpn_head.conv.weight.zero_()
+        model.rpn_head.conv.bias.zero_()
+    return model
+
+
+def _dp_card_rank(rank, world, preset):
+    from maskrcnn_tpu_torch.parallel import data_parallel as dp
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    cfg = _dp_cfg(preset)
+    model = dp.replicate(_quiet(MaskRCNN(cfg, seed=rank)))
+    state = create_train_state(cfg, model, seed=1)
+    batch = dp.shard_rows(SyntheticDetectionData(cfg).batch(0), rank, world)
+    roi_align_fwd.launches = region_scatter.launches = 0
+    metrics = {k: float(v) for k, v in make_train_step(cfg)(state, batch).items()}
+    torch.cuda.synchronize()
+    return {"metrics": metrics, "launches": (roi_align_fwd.launches,
+                                             region_scatter.launches),
+            "digest": dp.parameter_digest(model),
+            "params": {k: v.detach().cpu() for k, v in model.named_parameters()}}
+
+
+@pytest.mark.parametrize("preset", sorted(DP_CASES))
+def test_two_gloo_ranks_on_the_card_step_as_one_process(cuda, preset, tmp_path):
+    """Two processes on the one card, joined by gloo over CUDA tensors, take
+    one step of the global batch: each rank launches both kernels on its own
+    pyramid, the ranks' parameters are equal in bits, and the step equals
+    the 1-process step on the card from the same weights (the RPN's shared
+    conv zeroed: the same ROIs) within 1e-3 relative on each loss term and
+    1e-3 of the largest update on each parameter (``tiny_test``: Darknet's
+    BatchNorms train through sync-BN)."""
+    from maskrcnn_tpu_torch.parallel import data_parallel as dp
+
+    torch.backends.cudnn.allow_tf32 = False
+    cfg = _dp_cfg(preset)
+    model = _quiet(MaskRCNN(cfg, seed=0))
+    before = {k: v.detach().cpu().clone() for k, v in model.named_parameters()}
+    state = create_train_state(cfg, model, seed=1)
+    want = {k: float(v) for k, v in make_train_step(cfg)(
+        state, SyntheticDetectionData(cfg).batch(0)).items()}
+    single = {k: v.detach().cpu() - before[k] for k, v in model.named_parameters()}
+    ranks = dp.spawn_ranks(_dp_card_rank, 2, preset, workdir=str(tmp_path))
+    assert ranks[0]["digest"] == ranks[1]["digest"]
+    largest = max(float(u.abs().max()) for u in single.values())
+    for r in ranks:
+        assert r["launches"] == DP_CASES[preset][1]
+        for k, v in want.items():
+            assert r["metrics"][k] == pytest.approx(v, rel=1e-3), k
+        for k, u in single.items():
+            err = float((r["params"][k] - before[k] - u).abs().max())
+            assert err <= 1e-3 * largest, (k, err, largest)
+
+
+@pytest.mark.parametrize("preset,backbone,head", [
+    ("tiny_test", "darknet", "fpn"), ("fpn_mask", "fpn", "fpn")])
+def test_pretrained_npz_loads_on_the_card_as_on_the_cpu(cuda, preset, backbone, head,
+                                                        tmp_path):
+    """An npz emitted in chainer's layout, loaded loosely on the card and on
+    the CPU: every tensor equal bit for bit; a request with it runs."""
+    import numpy as np
+
+    from maskrcnn_tpu_torch.utils.chainer_npz import emit_model_npz
+    from maskrcnn_tpu_torch.utils.convert_chainer import load_pretrained_npz
+
+    cfg = cfg_lib._rep(cfg_lib.PRESETS[preset](),
+                       train=dict(batch_size=1, image_size=(128, 160)))
+    path = tmp_path / "model.npz"
+    np.savez(path, **emit_model_npz(backbone, head, n_fg_class=cfg.model.n_fg_class))
+    models = {d: MaskRCNN(cfg, device=d, seed=0) for d in ("cpu", "cuda")}
+    for m in models.values():
+        load_pretrained_npz(m, str(path), backbone, head, verbose=False)
+    want = models["cpu"].state_dict()
+    for k, v in models["cuda"].state_dict().items():
+        assert torch.equal(v.cpu(), want[k]), k
+    det = make_predict_fn(cfg, models["cuda"])(*SyntheticRequests(cfg).batch(0))
+    assert bool(torch.isfinite(det.boxes).all() and torch.isfinite(det.scores).all())
