@@ -134,18 +134,39 @@ Phases, in order; any failure exits non-zero before the result is printed:
    and on the CPU, equal bit for bit, then one request with it on the card;
 21. ``diag``: ``tools/diag_checkpoint.py`` on phase 11's step-4 checkpoint
    (B2 5, B1 1), and ``cli.train --profile-dir`` on ``tiny_test`` for 21
-   steps under ``roi_align="pallas"``: the trace of steps 11-20 holds 20
-   launches of each kernel;
-22. the kernels line: each kernel on the inputs the main paths gave it,
+   steps under ``roi_align="pallas"`` and ``--steps-per-dispatch 1``: the
+   trace of steps 11-20 holds 20 launches of each kernel;
+22. chained dispatch (``chain``, ``chain-dk``): ``make_train_step(cfg,
+   chain=4)`` on ``fpn_mask`` at 800×1024 b2 and ``darknet_keypoint`` at
+   256×320 b8 (its BatchNorms' running statistics moving inside the
+   graph), an eager step, the capture of a CUDA graph of the step and three
+   replays, against four eager steps from a copy of the same state: under
+   deterministic algorithms equal in every bit (losses, parameters,
+   buffers, momentum, the sampler generator); launch counts with the
+   replays (``fpn_mask``: B2 8, B1 4, NMS 8); eager and graphed steps timed
+   in turns; one ``fpn_mask`` eager step under
+   ``torch.cuda.set_sync_debug_mode("error")``;
+23. ``chain-cli``: ``cli.train`` at its default K on the card (``fpn_mask``
+   256×320 b2, 8 steps, logs and snapshots every 4: K=4), resumed from step
+   4, and with ``--steps-per-dispatch 1``, under deterministic algorithms:
+   the logged losses and the resumed step equal bit for bit, with the
+   launches of every replayed step;
+24. the kernels line: each kernel on the inputs the main paths gave it,
    held against its plain version, with both times, its bound (for the
    ROIAlign forward the work these inputs need, with the dense count beside
    it) and, where one PyTorch call computes the same function, that call's
    time; the region scatter's bookkeeping (the sort of its window rows) is
    timed alone beside it, the matrix products that build its input too, and
    ``torch.profiler`` lists the device kernels of one region-scatter call in
-   each dtype pair with their device times. The launches of the
-   evaluations and CLIs of phases 10, 11 and 17 and of phases 18-21 (each
-   DP rank's own counts) are counted in (``launches_by_path``). With ``--against``, the
+   each dtype pair with their device times. The NMS kernel is held against
+   its plain version (the Jacobi loop) on request 0's two calls (the RPN's
+   6000 boxes, per-class NMS over 80 classes × 300 proposals) and the warm-up step's
+   two (12000 boxes an image): equal ``(indices, valid)``, timed beside the
+   bound of the pairs these inputs need. The launches of the evaluations
+   and CLIs of phases 10, 11 and 17 and of phases 18-23 (each DP rank's own
+   counts) are counted in (``launches_by_path``); every phase that predicts
+   or trains checks NMS's count too (once an image in the RPN, once an
+   image in predict's per-class NMS). With ``--against``, the
    ROIAlign forward source of another checkout (same C interface) is built too and timed on the same
    inputs in the order other, this, this, other.
 
@@ -156,8 +177,10 @@ the kernels JSON line and ``{"ok": true, "device": {...}}``.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import importlib.metadata
 import importlib.util
+import io
 import json
 import os
 import shutil
@@ -200,9 +223,10 @@ from maskrcnn_tpu_torch.eval import export as export_mod
 from maskrcnn_tpu_torch.eval.postprocess import decode_keypoints, paste_masks
 from maskrcnn_tpu_torch.eval import predict as predict_mod
 from maskrcnn_tpu_torch.eval.predict import make_predict_fn
-from maskrcnn_tpu_torch.kernels import region_scatter_cuda, roi_align_cuda
+from maskrcnn_tpu_torch.kernels import nms_cuda, region_scatter_cuda, roi_align_cuda
 from maskrcnn_tpu_torch.kernels.build import nvcc_path
 from maskrcnn_tpu_torch.models.maskrcnn import MaskRCNN, pyramid_shapes
+from maskrcnn_tpu_torch.ops import nms as nms_ops
 from maskrcnn_tpu_torch.ops import roi_align as roi_align_ops
 from maskrcnn_tpu_torch.ops.levels import map_rois_to_fpn_levels
 from maskrcnn_tpu_torch.parallel import data_parallel as dp
@@ -276,8 +300,10 @@ C4_CPU_SAMPLES = {"c4_res5": 64}  # sampled ROIs an image of the card-vs-CPU
 
 ROI_ALIGN = roi_align_cuda.roi_align_fwd
 SCATTER = region_scatter_cuda.region_scatter
+NMS = nms_cuda.nms_greedy
 # every hand-written kernel of the main paths: (wrapper, plain version,
-# source, the Pallas kernel it replaces)
+# source, the TPU code it replaces: a Pallas kernel, or for NMS, which JAX
+# computes in XLA ops, the Jacobi while_loop)
 KERNELS = [
     (ROI_ALIGN, roi_align_cuda.roi_align_region_plain,
      "maskrcnn_tpu_torch/kernels/csrc/roi_align_fwd.cu",
@@ -285,7 +311,16 @@ KERNELS = [
     (SCATTER, region_scatter_cuda.region_scatter_plain,
      "maskrcnn_tpu_torch/kernels/csrc/region_scatter.cu",
      "maskrcnn_tpu/kernels/region_scatter_pallas.py:121"),
+    (NMS, nms_cuda.nms_keep_plain,
+     "maskrcnn_tpu_torch/kernels/csrc/nms_greedy.cu",
+     "maskrcnn_tpu/ops/nms.py:128"),
 ]
+NMS_CALLS = {}  # path → the NMS kernel's inputs there (request 0, the
+#   warm-up step), for the kernels phase
+CHAIN_K = 4  # steps a chained call in the chain phases
+CHAIN = {"chain": ("fpn_mask", (800, 1024), 2),
+         "chain-dk": ("darknet_keypoint", (256, 320), 8)}  # tag: (preset,
+#   size, batch) of the chained step held against eager steps
 
 
 def fail(msg: str):
@@ -765,6 +800,22 @@ def read_launches() -> dict:
     return {kernel.name: kernel.launches for kernel, *_ in KERNELS}
 
 
+def pool_counts(launches: dict) -> dict:
+    """The ROIAlign kernels' counts of a launches dict (phases whose NMS
+    count is not worked out; ``nms_launches`` requires it nonzero)."""
+    return {k: v for k, v in launches.items() if k != NMS.name}
+
+
+def nms_launches(launches: dict, want: int | None, tag: str):
+    """NMS runs once per image in the RPN and once per image in predict's
+    per-class NMS: fail unless the count is ``want`` (or, when None, at
+    least one)."""
+    got = launches[NMS.name]
+    if (got != want) if want is not None else got < 1:
+        fail(f"[{tag}] nms_greedy launched {got} times, expected "
+             f"{want if want is not None else 'some'}")
+
+
 def pool_launches(cfg) -> tuple[int, int, int]:
     """(B2 launches a request, B2 a step, B1 a step) of a config's paths:
     the FPN heads' shared pair under auto/region/fused trains with 2 and 1;
@@ -823,19 +874,22 @@ def phase_predict(n_requests: int, seed: int, settings=None,
 
     # warm-up request 0, keeping the kernel inputs it makes (2 per request)
     capture = Capture(ROI_ALIGN, per_request)
-    roi_align_ops.roi_align_fwd = capture
+    nms_capture = Capture(NMS, 2)
+    roi_align_ops.roi_align_fwd, nms_ops.nms_greedy = capture, nms_capture
     try:
         det0 = predict(*requests[0])
         torch.cuda.synchronize()
     finally:
-        roi_align_ops.roi_align_fwd = ROI_ALIGN
+        roi_align_ops.roi_align_fwd, nms_ops.nms_greedy = ROI_ALIGN, NMS
+    NMS_CALLS.setdefault(tag, nms_capture.calls)
 
     reset_launches()
     times, dets = time_requests(predict, requests, warmup=0)
     launches = read_launches()
     print(f"[{tag}] launches over {n_requests} requests: {launches}")
-    if launches != {"roi_align_fwd": per_request * n_requests,
-                    "region_scatter": 0}:
+    nms_launches(launches, 2 * n_requests, tag)
+    if pool_counts(launches) != {"roi_align_fwd": per_request * n_requests,
+                                 "region_scatter": 0}:
         fail(f"expected {per_request} forward launches per request, got "
              f"{launches}")
     for det in dets:
@@ -957,8 +1011,9 @@ def phase_train(n_steps: int, seed: int, settings=None, preset: str = "fpn_mask"
     fwd, bwd = Capture(ROI_ALIGN, per_step), Capture(SCATTER, scatters)
     d_regions = roi_align_ops._d_regions
     products = Capture(d_regions, 2 if scatters else 0)
+    nms_capture = Capture(NMS, batch)
     roi_align_ops.roi_align_fwd, roi_align_ops.region_scatter = fwd, bwd
-    roi_align_ops._d_regions = products
+    roi_align_ops._d_regions, nms_ops.nms_greedy = products, nms_capture
     try:
         t1 = time.perf_counter()
         step(state, batches[0])
@@ -966,7 +1021,8 @@ def phase_train(n_steps: int, seed: int, settings=None, preset: str = "fpn_mask"
         print(f"[{tag}] warm-up step in {time.perf_counter() - t1:.1f} s")
     finally:
         roi_align_ops.roi_align_fwd, roi_align_ops.region_scatter = ROI_ALIGN, SCATTER
-        roi_align_ops._d_regions = d_regions
+        roi_align_ops._d_regions, nms_ops.nms_greedy = d_regions, NMS
+    NMS_CALLS.setdefault(tag, nms_capture.calls)
 
     before = snapshot(state.model)
     stats = running_statistics(state.model)
@@ -974,8 +1030,9 @@ def phase_train(n_steps: int, seed: int, settings=None, preset: str = "fpn_mask"
     times, metrics, peak = time_train_steps(step, state, batches[1:], warmup=0)
     launches = read_launches()
     print(f"[{tag}] launches over {n_steps} steps: {launches}")
-    if launches != {"roi_align_fwd": per_step * n_steps,
-                    "region_scatter": scatters * n_steps}:
+    nms_launches(launches, batch * n_steps, tag)
+    if pool_counts(launches) != {"roi_align_fwd": per_step * n_steps,
+                                 "region_scatter": scatters * n_steps}:
         fail(f"expected {per_step} forward launches and {scatters} region "
              f"scatters per step, got {launches}")
     for i, m in enumerate(metrics):
@@ -1292,7 +1349,8 @@ def phase_eval(n_batches: int, seed: int):
         for name, timed in scorers.items():
             setattr(evaluator, name, timed.fn)
     print(f"[eval] launches over {n_batches} batches: {launches}")
-    if launches != {"roi_align_fwd": 2 * n_batches, "region_scatter": 0}:
+    nms_launches(launches, 2 * n_batches, "eval")
+    if pool_counts(launches) != {"roi_align_fwd": 2 * n_batches, "region_scatter": 0}:
         fail(f"expected 2 forward launches per evaluated batch, got {launches}")
     if not all(np.isfinite(v) and 0.0 <= v <= 1.0 for v in report.values()):
         fail(f"eval report out of [0, 1]: {report}")
@@ -1406,7 +1464,9 @@ def phase_cli(seed: int, preset: str = "fpn_mask", tag: str = "cli",
             "resumed": {"roi_align_fwd": 2 * per_step + 2 * fwd,
                         "region_scatter": 2 * scatters},
             "evaluate": {"roi_align_fwd": 2 * fwd, "region_scatter": 0}}
-    if launches != want:
+    for name, counts in launches.items():
+        nms_launches(counts, None, f"{tag} {name}")
+    if {name: pool_counts(counts) for name, counts in launches.items()} != want:
         fail(f"CLI launches {launches}, expected {want}")
     steps, worst = resumed_steps(rows, tag)
     print(f"[{tag}] steps 3-4 resumed from the step-2 checkpoint: worst loss "
@@ -1427,7 +1487,7 @@ def phase_cli(seed: int, preset: str = "fpn_mask", tag: str = "cli",
     if err > CLI_REPORT_TOL or len(dets) != 2 or max(dets) > CLI_REPORT_TOL:
         fail(f"cli.evaluate differs from the in-run evaluation: report {err}, "
              f"detections {dets}")
-    return {k: sum(v[k] for v in launches.values()) for k in want["run"]}
+    return {k: sum(v[k] for v in launches.values()) for k in read_launches()}
 
 
 def png_size(path) -> tuple[int, int] | None:
@@ -1656,7 +1716,9 @@ def phase_kp_eval(n_batches: int, seed: int, preset: str = "fpn_keypoint",
     print(f"[{tag}] launches over {n_batches} batches: {launches}; report "
           f"{report}; {secs:.3f} s for {n_batches} images, "
           f"{secs / n_batches:.3f} s an image; {card_name_and_power_limit()}")
-    if launches != {"roi_align_fwd": per_batch * n_batches, "region_scatter": 0}:
+    nms_launches(launches, 2 * n_batches, tag)
+    if pool_counts(launches) != {"roi_align_fwd": per_batch * n_batches,
+                                 "region_scatter": 0}:
         fail(f"expected {per_batch} forward launches per evaluated batch, got "
              f"{launches}")
     if set(report) != {"ap", "ap50", "ap75"} or not all(
@@ -1782,7 +1844,8 @@ def phase_depth_cli(seed: int):
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
     print(f"[dk-depth-cli] launches (train, resumed): {launches}")
-    if any(v != {"roi_align_fwd": 0, "region_scatter": 0} for v in launches.values()):
+    if any(pool_counts(v) != {"roi_align_fwd": 0, "region_scatter": 0}
+           for v in launches.values()):
         fail(f"the gather pool launched a kernel: {launches}")
     steps, worst = resumed_steps(rows, "dk-depth-cli")
     val = [r for r in rows["a"] if "validation/main/ap" in r]
@@ -1906,7 +1969,9 @@ def phase_dp_gloo(seed: int, preset: str, hw, batch: int, tag: str) -> dict:
         print(f"[{tag}] rank {r}: " + ", ".join(
             f"{k} {v:.6f}" for k, v in out["metrics"].items())
             + f"; launches {out['launches']}")
-        if out["launches"] != {"roi_align_fwd": per_step, "region_scatter": scatters}:
+        nms_launches(out["launches"], batch // 2, f"{tag} rank {r}")
+        if pool_counts(out["launches"]) != {"roi_align_fwd": per_step,
+                                            "region_scatter": scatters}:
             fail(f"[{tag}] rank {r} launched {out['launches']}, expected "
                  f"{per_step} forward and {scatters} region scatters")
         got_up = {k: out["state"][k] - cpu_before[k] for k in cpu_before}
@@ -2051,7 +2116,9 @@ def phase_diag(weight: str, preset: str, hw: str, seed: int) -> dict:
           f"{launches}; {time.perf_counter() - t0:.1f} s")
     # the train step's, the box head's pool on the proposals (one), predict's
     want = {"roi_align_fwd": per_step + 1 + fwd, "region_scatter": scatters}
-    if launches != want or not np.isfinite(list(stages["loss"].values())).all():
+    nms_launches(launches, None, "diag")
+    if (pool_counts(launches) != want
+            or not np.isfinite(list(stages["loss"].values())).all()):
         fail(f"[diag] launches {launches} (expected {want}), loss {stages['loss']}")
     return launches
 
@@ -2067,6 +2134,7 @@ def phase_profile(seed: int) -> dict:
         reset_launches()
         train_cli.main(["--preset", "tiny_test", "--iterations", "21",
                         "--snapshot-every", "21", "--log-every", "21",
+                        "--steps-per-dispatch", "1",  # eager steps, traced
                         "--seed", str(seed), "--set", "model.roi_align=pallas",
                         "--profile-dir", str(tmp / "trace"), "--out", str(tmp / "run")])
         torch.cuda.synchronize()
@@ -2086,9 +2154,247 @@ def phase_profile(seed: int) -> dict:
     if kernels != {"roi_align_fwd_kernel": 20, "region_scatter_kernel": 20}:
         fail(f"[profile] the trace holds {kernels}, expected 20 launches of each "
              "kernel over steps 11-20")
-    if launches != {"roi_align_fwd": 42, "region_scatter": 42}:
+    nms_launches(launches, None, "profile")
+    if pool_counts(launches) != {"roi_align_fwd": 42, "region_scatter": 42}:
         fail(f"[profile] launches {launches}")
     return launches
+
+
+def everything(state) -> dict:
+    """Copies of a train state's tensors: parameters, buffers, momentum."""
+    out = {f"model.{k}": v.detach().clone()
+           for k, v in state.model.state_dict().items()}
+    for i, p in enumerate(state.model.parameters()):
+        if p in state.optimizer.state:
+            out[f"momentum.{i}"] = state.optimizer.state[p]["momentum_buffer"].clone()
+    return out
+
+
+@contextlib.contextmanager
+def deterministic():
+    """cuDNN's deterministic algorithms and PyTorch's deterministic
+    implementations (a warning where an op has none): the card then repeats
+    a train step bit for bit."""
+    torch.backends.cudnn.deterministic = True
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    try:
+        yield
+    finally:
+        torch.backends.cudnn.deterministic = False
+        torch.use_deterministic_algorithms(False)
+
+
+def phase_chain(seed: int, preset: str, hw, batch: int, tag: str) -> dict:
+    """Chained dispatch on the card: ``make_train_step(cfg, chain=CHAIN_K)``
+    (its first call: one eager step, the capture of a CUDA graph of the
+    step, CHAIN_K - 1 replays) against CHAIN_K eager steps from a copy of
+    the same state (same seed: same weights and sampler generator), on the
+    same batches. By default the card does not repeat its float32 sums bit
+    for bit (cuDNN's backward algorithms, the atomics of index gradients:
+    two eager runs part by 1e-3 in a loss by the fourth step), so both run
+    under deterministic algorithms, where two eager runs agree in every
+    bit, and the graphed steps must equal the eager ones in every bit:
+    the losses of each step, the parameters, buffers and momentum after
+    them, and the sampler generator. Launch counters around the chained
+    call (replays included): per step B2 and B1 as the step's pool gives
+    them, NMS once per image. Then, with the default algorithms, fresh
+    states time steps in turns: CHAIN_K eager steps, a chain, a chain,
+    CHAIN_K eager steps (CUDA events, after a warm-up chain each); and for
+    ``fpn_mask`` one eager step with its batch already on the card runs
+    under ``torch.cuda.set_sync_debug_mode("error")``."""
+    cfg = predict_config(preset, batch, *hw)
+    _, per_step, scatters = pool_launches(cfg)
+    data = SyntheticDetectionData(cfg, seed=seed)
+    batches = [data.batch(i) for i in range(2 * CHAIN_K)]
+    first, later = (step_mod.stack_batches(batches[:CHAIN_K]),
+                    step_mod.stack_batches(batches[CHAIN_K:]))
+
+    def fresh():
+        return create_train_state(cfg, MaskRCNN(cfg, seed=seed), seed)
+
+    with deterministic():
+        step = make_train_step(cfg)
+        chained = make_train_step(cfg, chain=CHAIN_K)
+        eager_state, graph_state = fresh(), fresh()
+        eager = [step(eager_state, b) for b in batches[:CHAIN_K]]
+        torch.cuda.synchronize()
+        reset_launches()
+        t0 = time.perf_counter()
+        metrics = chained(graph_state, first)
+        torch.cuda.synchronize()
+        first_s = time.perf_counter() - t0
+        launches = read_launches()
+    want = {ROI_ALIGN.name: per_step * CHAIN_K, SCATTER.name: scatters * CHAIN_K,
+            NMS.name: batch * CHAIN_K}
+    print(f"[{tag}] {preset} {hw[0]}x{hw[1]} b{batch}: chain={CHAIN_K}'s first "
+          f"call (an eager step, the capture, {CHAIN_K - 1} replays) in "
+          f"{first_s:.2f} s; launches {launches}")
+    if launches != want:
+        fail(f"[{tag}] launches {launches}, expected {want}")
+    for i in range(CHAIN_K):
+        print(f"[{tag}] step {i + 1}: " + ", ".join(
+            f"{k} {float(v[i]):.6f}" for k, v in metrics.items()))
+        for k, v in eager[i].items():
+            if not torch.equal(metrics[k][i], v):
+                fail(f"[{tag}] step {i + 1}: {k} graphed {float(metrics[k][i])}, "
+                     f"eager {float(v)}")
+    want_t, got_t = everything(eager_state), everything(graph_state)
+    unequal = [k for k in want_t if not torch.equal(want_t[k], got_t[k])]
+    if unequal or graph_state.step != CHAIN_K or not torch.equal(
+            graph_state.generator.get_state(), eager_state.generator.get_state()):
+        fail(f"[{tag}] after the chain: tensors unlike the eager run's "
+             f"{unequal[:5]} of {len(want_t)}, step {graph_state.step}")
+    print(f"[{tag}] deterministic algorithms: the {CHAIN_K} graphed steps equal "
+          f"the eager ones in every bit (losses, {len(want_t)} tensors, the "
+          "generator)")
+    del eager_state, graph_state, step, chained
+    step = make_train_step(cfg)
+    chained = make_train_step(cfg, chain=CHAIN_K)
+    eager_state, graph_state = fresh(), fresh()
+    for b in batches[:CHAIN_K]:
+        step(eager_state, b)
+    chained(graph_state, first)
+    times = {"eager": [], "graphed": []}
+    for kind in ("eager", "graphed", "graphed", "eager"):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        if kind == "eager":
+            for b in batches[CHAIN_K:]:
+                step(eager_state, b)
+        else:
+            chained(graph_state, later)
+        end.record()
+        end.synchronize()
+        times[kind].append(start.elapsed_time(end) / CHAIN_K)
+    print(f"[{tag}] ms per step, in turns: eager {times['eager'][0]:.2f}, "
+          f"graphed {times['graphed'][0]:.2f}, graphed {times['graphed'][1]:.2f}, "
+          f"eager {times['eager'][1]:.2f}; {card_name_and_power_limit()}")
+    if preset == "fpn_mask":
+        on_card = step_mod.to_device(batches[0], eager_state.model.device)
+        torch.cuda.synchronize()
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            step(eager_state, on_card)
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+        torch.cuda.synchronize()
+        print(f"[{tag}] one eager step under set_sync_debug_mode('error'): "
+              "no host sync")
+    return launches
+
+
+def phase_chain_cli(seed: int) -> dict:
+    """``cli.train`` on the card at its default K: ``fpn_mask`` at 256×320
+    b2, 8 steps, logs and snapshots every 4 (so K=4, the JAX rule's largest
+    divisor of 4, 4 and 8 under 20), resumed from step 4 (K=4 again), and
+    the same run with ``--steps-per-dispatch 1``, all under deterministic
+    algorithms (with the default ones eight steps part by 3e-3 in a loss,
+    and the resumed run's step 8 by 8e-3): the logged losses equal the K=1
+    run's bit for bit, and the resumed run's step 8 the uninterrupted
+    run's; launches, replays included, B2 2, B1 1 and NMS 2 a step."""
+    tmp = Path(tempfile.mkdtemp(prefix="chip_smoke_chain_cli_"))
+    common = ["--preset", "fpn_mask", "--image-size", "256x320",
+              "--batch-size", "2", "--iterations", "8", "--snapshot-every", "4",
+              "--log-every", "4", "--seed", str(seed)]
+    launches, said = {}, {}
+    t0 = time.perf_counter()
+    try:
+        for name in ("a", "resumed", "k1"):
+            argv = ["--out", str(tmp / name), *common]
+            if name == "resumed":
+                (tmp / name / "checkpoints").mkdir(parents=True)
+                shutil.copy(tmp / "a" / "checkpoints" / "step_00000004.pt",
+                            tmp / name / "checkpoints")
+                argv.append("--resume")
+            if name == "k1":
+                argv += ["--steps-per-dispatch", "1"]
+            torch.cuda.synchronize()
+            reset_launches()
+            out = io.StringIO()
+            with contextlib.redirect_stdout(out), deterministic():
+                train_cli.main(argv)
+            torch.cuda.synchronize()
+            launches[name] = read_launches()
+            said[name] = [ln for ln in out.getvalue().splitlines()
+                          if ln.startswith("[dispatch]")]
+        rows = {d: [r for r in (json.loads(line) for line in open(tmp / d / "log.jsonl"))
+                    if "main/loss" in r] for d in ("a", "resumed", "k1")}
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    print(f"[chain-cli] fpn_mask 256x320 b2, 8 steps at the default K: "
+          f"{said}; launches {launches}; {time.perf_counter() - t0:.1f} s")
+    want = {n: {ROI_ALIGN.name: 2 * k, SCATTER.name: k, NMS.name: 2 * k}
+            for n, k in (("a", 8), ("resumed", 4), ("k1", 8))}
+    if launches != want:
+        fail(f"[chain-cli] launches {launches}, expected {want}")
+    if (said["a"] != ["[dispatch] chaining 4 steps per call of the step"]
+            or said["resumed"] != said["a"] or said["k1"]):
+        fail(f"[chain-cli] chains chosen: {said}")
+    steps = {name: {r["iteration"]: r["main/loss"] for r in rows[name]}
+             for name in rows}
+    print(f"[chain-cli] logged losses: {steps}")
+    if sorted(steps["a"]) != [1, 4, 8] or sorted(steps["resumed"]) != [8]:
+        fail(f"[chain-cli] logged steps {steps}")
+    if steps["a"] != steps["k1"] or steps["resumed"][8] != steps["a"][8]:
+        fail("[chain-cli] the K=4 run's losses are not the K=1 run's, or the "
+             "resumed run's not the uninterrupted run's")
+    print("[chain-cli] K=4 equals K=1 at every logged step, and the resumed "
+          "step 8 the uninterrupted one, bit for bit")
+    return {k: sum(v[k] for v in launches.values()) for k in read_launches()}
+
+
+def nms_entry(paths: dict) -> dict:
+    """The NMS kernel on the inputs the f32 request and train step gave it
+    (request 0's two calls, the warm-up step's two): keep masks equal to its
+    plain version's up to the ``n_out``-th kept box, so ``nms_padded``'s
+    ``(indices, valid)`` are equal; timed beside the
+    plain version and the bound of the work these inputs need (each box
+    compared with the kept boxes before it, up to the ``n_out``-th kept;
+    the boxes, validity and keep mask moved once), with the dense count
+    beside it (every pair of the upper triangle; the mask's bytes)."""
+    out = dict(ms=0.0, plain_ms=0.0, max_abs_err=0.0)
+    bounds = dict(bytes_ms=0.0, ops_ms=0.0, dense_ops_ms=0.0, mask_ms=0.0)
+    for path in ("predict", "train"):
+        for args in NMS_CALLS[path]:
+            boxes_s, valid_s, thresh, n_out = args
+            got, want = NMS(*args), nms_cuda.nms_keep_plain(*args)
+            if not torch.equal(kept_prefix(got, n_out), kept_prefix(want, n_out)):
+                fail(f"nms_greedy on the {path} path's {tuple(valid_s.shape)} "
+                     "differs from its plain version")
+            ms = time_ms(lambda: NMS(*args))
+            plain_ms = time_ms(lambda: nms_cuda.nms_keep_plain(*args), runs=7, calls=3)
+            work = nms_cuda.nms_work(want, n_out)
+            b = {"bytes_ms": 1e3 * work["bytes"] / HBM_BYTES_PER_S,
+                 "ops_ms": 1e3 * work["flops"] / F32_FLOPS,
+                 "dense_ops_ms": 1e3 * work["dense_flops"] / F32_FLOPS,
+                 "mask_ms": 1e3 * work["mask_bytes"] / HBM_BYTES_PER_S}
+            print(f"[kernels] nms_greedy {path}-path call "
+                  f"{tuple(valid_s.shape)} (threshold {thresh}, n_out {n_out}, "
+                  f"{int(want.sum())} kept): {ms:.4f} ms, plain {plain_ms:.4f} ms, "
+                  f"bound bytes {b['bytes_ms']:.5f} / operations "
+                  f"{b['ops_ms']:.5f} ms ({work['pairs']} pairs; dense: "
+                  f"{b['dense_ops_ms']:.4f} ms of operations, the mask's "
+                  f"bytes {b['mask_ms']:.4f} ms); (indices, valid) equal to "
+                  "the plain version's")
+            out["ms"] += ms
+            out["plain_ms"] += plain_ms
+            for key in bounds:
+                bounds[key] += b[key]
+    out["bound_ms"] = max(bounds["bytes_ms"], bounds["ops_ms"])
+    out["bound_by"] = "bytes" if bounds["bytes_ms"] >= bounds["ops_ms"] else "operations"
+    out["bound_dense_ms"] = max(bounds["dense_ops_ms"], bounds["mask_ms"])
+    n = {path: v[0].get(NMS.name, 0) for path, v in paths.items()}
+    return {"name": NMS.name, "route": "cuda", "source": KERNELS[2][2],
+            "replaces": KERNELS[2][3], "launches": sum(n.values()),
+            "launches_by_path": n, **out,
+            "library_ms": None}  # torchvision, which has an NMS, is absent
+
+
+def kept_prefix(keep: torch.Tensor, n_out: int) -> torch.Tensor:
+    """The kept boxes of a keep mask (P, N) up to each row's ``n_out``-th:
+    equal prefixes compact to equal ``(indices, valid)`` in ``nms_padded``."""
+    return keep & (torch.cumsum(keep.long(), dim=-1) <= n_out)
 
 
 def time_calls(kernel, plain, bound, calls, label: str) -> dict:
@@ -2239,7 +2545,7 @@ def phase_kernels_line(paths: dict):
     forward, float32 train for the region scatter), the others are under
     the path's name; ``launches`` counts every path, ``launches_by_path``
     each."""
-    (_, fwd_plain, fwd_src, fwd_repl), (_, bwd_plain, bwd_src, bwd_repl) = KERNELS
+    (_, fwd_plain, fwd_src, fwd_repl), (_, bwd_plain, bwd_src, bwd_repl) = KERNELS[:2]
     fwd, bwd, lib, products = {}, {}, {}, {}
     for path, (_, fwd_calls, bwd_calls, product_calls) in paths.items():
         if not fwd_calls:  # the eval and CLI paths: launches only
@@ -2256,7 +2562,7 @@ def phase_kernels_line(paths: dict):
     for args in paths["predict"][1]:
         time_by_roi_count(args)
     per_call = scatter_kernels_per_call(paths)  # after the timings: traced
-    n = {name: {path: v[0][name] for path, v in paths.items()}
+    n = {name: {path: v[0].get(name, 0) for path, v in paths.items()}
          for name in (ROI_ALIGN.name, SCATTER.name)}
     first_fwd, first_bwd = "predict", "train"
     return [
@@ -2274,6 +2580,7 @@ def phase_kernels_line(paths: dict):
          **{f"{path}_path": {**v, "library_ms": lib[path],
                              "d_regs_matmul_ms": products[path]}
             for path, v in bwd.items() if path != first_bwd}},
+        nms_entry(paths),
     ]
 
 
@@ -2356,6 +2663,10 @@ def main(argv=None):
     phase_dp_nccl(args.seed)
     paths["pretrained"] = (phase_pretrained(args.seed), [], [], [])
     paths["profile"] = (phase_profile(args.seed), [], [], [])
+    for tag, (preset, hw, batch) in CHAIN.items():
+        paths[tag.replace("-", "_")] = (phase_chain(args.seed, preset, hw, batch, tag),
+                                        [], [], [])
+    paths["chain_cli"] = (phase_chain_cli(args.seed), [], [], [])
     entries = phase_kernels_line(paths)
     for entry in entries:
         entry["coco_launches_by_shape"] = {k: v[entry["name"]]

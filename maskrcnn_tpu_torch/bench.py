@@ -8,7 +8,7 @@ GPU (counterpart of the JAX package's ``bench.py``).
         [--roi-align auto] [--dtype float32|bfloat16]
         [--roi-align-acc float32|bfloat16] [--remat] [--grad-accum N]
         [--momentum-dtype bfloat16] [--set SECTION.KEY=VALUE ...]
-        [--profile N]
+        [--profile N] [--steps-per-dispatch K]
 
 The JAX package's bench options: ``--dtype`` is ``model.dtype`` (float32
 by default, so earlier numbers stay comparable), ``--roi-align-acc`` the
@@ -26,13 +26,20 @@ is the preset's own bucket unless ``--height``/``--width`` say otherwise:
 batches from seeded random weights (TF32 off) through
 :func:`maskrcnn_tpu_torch.train.step.make_train_step` and prints ONE JSON
 line: the median milliseconds per step after warm-up (CUDA events), steps
-and images per second, the peak device memory of a step, the last step's
+and images per second, the peak device memory of a step (allocated, and
+reserved by the caching allocator: a CUDA graph's pool, allocated at
+capture, counts only in the latter), the last step's
 losses, the hand-written kernels' launches per step, and the time and
 memory of proposal generation (exact NMS) alone; with ``--profile N`` also
 the device's busy share and the kernels that take its time, traced over N
 more steps. The FPN heads train through the shared window under
 ``--roi-align`` auto, region or fused and through two pools under gather or
-pallas; the light and Res5 heads always pool twice.
+pallas; the light and Res5 heads always pool twice. With
+``--steps-per-dispatch K`` (K > 1) the line also holds, under ``chained``,
+the same numbers for ``make_train_step(cfg, chain=K)`` from a fresh state on
+the same batches: each call runs K steps, replays of a CUDA graph of the
+step after the first call's capture; ms per step is a chain's time over K,
+and ``--profile N`` traces N/K chains.
 
 ``--mode predict`` (batch 1 unless given) serves synthetic requests (seeded
 random weights with the class scores spread as :func:`spread_class_scores`
@@ -60,8 +67,6 @@ from maskrcnn_tpu_torch.data.synthetic import (
     SyntheticRequests,
 )
 from maskrcnn_tpu_torch.eval.predict import make_predict_fn
-from maskrcnn_tpu_torch.kernels.region_scatter_cuda import region_scatter
-from maskrcnn_tpu_torch.kernels.roi_align_cuda import roi_align_fwd
 from maskrcnn_tpu_torch.models.maskrcnn import (
     MaskRCNN,
     backbone_geometry,
@@ -69,7 +74,7 @@ from maskrcnn_tpu_torch.models.maskrcnn import (
 )
 from maskrcnn_tpu_torch.models.rpn import anchors_for, generate_proposals
 from maskrcnn_tpu_torch.train.state import create_train_state
-from maskrcnn_tpu_torch.train.step import make_train_step
+from maskrcnn_tpu_torch.train.step import KERNELS, make_train_step, stack_batches
 from maskrcnn_tpu_torch.utils.device import card_name_and_power_limit
 
 # requests served before timing: lazy CUDA and cuDNN set-up, allocator growth
@@ -193,20 +198,22 @@ def time_train_steps(step, state, batches, warmup: int = 2):
 def time_train_proposals(cfg: cfg_lib.Config, model, batch, runs: int = 5) -> dict:
     """``generate_proposals`` at the train budgets alone, on the model's own
     RPN outputs for ``batch``: median ms (CUDA events) and the peak memory
-    it allocates above what is held. Exact NMS builds the whole
-    ``(n_pre, n_pre)`` suppression matrix per image."""
+    it allocates above what is held (the backbone's outputs stay held).
+    Exact NMS builds a 64-bit suppression mask over the upper triangle of
+    the ``(n_pre, n_pre)`` pairs per image."""
     shapes = pyramid_shapes(cfg, cfg.train.image_size)
     anchors = torch.as_tensor(
         anchors_for(cfg, shapes, backbone_geometry(cfg)[0]), device=model.device)
     with torch.no_grad():
-        _, locs, scores = model(torch.as_tensor(batch.images, device=model.device))
+        features, locs, scores = model(
+            torch.as_tensor(batch.images, device=model.device))
         img_hw = torch.as_tensor(batch.img_hw, device=model.device)
         scale = torch.as_tensor(batch.scale, device=model.device)
         torch.cuda.synchronize()
         held = torch.cuda.memory_allocated()
         torch.cuda.reset_peak_memory_stats()
         times = []
-        for _ in range(runs):
+        for _run in range(runs):
             start = torch.cuda.Event(enable_timing=True)
             end = torch.cuda.Event(enable_timing=True)
             start.record()
@@ -219,6 +226,7 @@ def time_train_proposals(cfg: cfg_lib.Config, model, batch, runs: int = 5) -> di
             end.record()
             end.synchronize()
             times.append(start.elapsed_time(end))
+        del features  # held through the runs, as in the step
     return {"proposals_ms": statistics.median(times),
             "proposals_peak_gib": (torch.cuda.max_memory_allocated() - held) / 2**30,
             "proposals_valid_per_image": props.valid.sum(dim=1).tolist()}
@@ -257,6 +265,46 @@ def percentile(times, q: float) -> float:
     return s[min(len(s) - 1, int(len(s) * q))]
 
 
+def bench_chained(args, cfg, batches, k: int) -> dict:
+    """``make_train_step(cfg, chain=k)`` from a fresh state: two warm-up
+    chains (the first captures), then chains over ``args.steps`` steps
+    (rounded up to whole chains) → ms per step and the rest, per step."""
+    batch = cfg.train.batch_size
+    state = create_train_state(cfg, MaskRCNN(cfg, seed=0))
+    step = make_train_step(cfg, chain=k)
+    n_chains = 2 + -(-args.steps // k)
+    chains = [stack_batches([batches[(i * k + j) % 4] for j in range(k)])
+              for i in range(n_chains + -(-args.profile // k))]
+    for kernel in KERNELS:
+        kernel.launches = 0
+    times, metrics, peak = time_train_steps(step, state, chains[:n_chains], 2)
+    reserved = torch.cuda.max_memory_reserved()
+    profiled = (profile_requests(lambda b: step(state, b),
+                                 [(c,) for c in chains[n_chains:]], top=16)
+                if args.profile else {})
+    if profiled:  # per step, not per chain
+        for key in ("wall_ms_per_request", "device_ms_per_request"):
+            profiled[key] /= k
+        for row in profiled["top_kernels_ms_per_request"]:
+            row[1] /= k
+            row[2] //= k
+    ms = statistics.median(times) / k
+    return {
+        "steps_per_dispatch": k,
+        "images_per_s": batch * 1e3 / ms,
+        "step_ms_p50": ms,
+        "step_ms_max": max(times) / k,
+        "steps": (n_chains - 2) * k,
+        "peak_memory_gib": peak / 2**30,
+        # the graph's private pool, allocated at capture, shows only here
+        "peak_reserved_gib": reserved / 2**30,
+        "last_step": {key: float(v[-1]) for key, v in metrics[-1].items()},
+        "kernel_launches_per_step": {kernel.name: kernel.launches / (n_chains * k)
+                                     for kernel in KERNELS},
+        **profiled,
+    }
+
+
 def bench_train(args) -> dict:
     batch = args.batch or cfg_lib.PRESETS[args.preset]().train.batch_size
     cfg = bench_config(args, batch)
@@ -267,15 +315,20 @@ def bench_train(args) -> dict:
     warmup = 2
     n = warmup + args.steps
     batches = [data.batch(i % 4) for i in range(n + args.profile)]
-    kernels = (roi_align_fwd, region_scatter)
-    for k in kernels:
+    for k in KERNELS:
         k.launches = 0
     times, metrics, peak = time_train_steps(step, state, batches[:n], warmup)
-    launches = {k.name: k.launches / n for k in kernels}
+    reserved = torch.cuda.max_memory_reserved()
+    launches = {k.name: k.launches / n for k in KERNELS}
     profiled = (profile_requests(lambda b: step(state, b),
                                  [(b,) for b in batches[n:]], top=16)
                 if args.profile else {})
     proposals = time_train_proposals(cfg, state.model, batches[0])
+    chained = {}
+    if args.steps_per_dispatch > 1:
+        del state, step
+        chained = {"chained": bench_chained(args, cfg, batches[:4],
+                                            args.steps_per_dispatch)}
     ms = statistics.median(times)
     return {
         "metric": f"train_images_per_s_{args.preset}_{h}x{w}_b{batch}",
@@ -286,11 +339,13 @@ def bench_train(args) -> dict:
         "steps_per_s": 1e3 / ms,
         "steps": args.steps,
         "peak_memory_gib": peak / 2**30,
+        "peak_reserved_gib": reserved / 2**30,
         "last_step": {k: float(v) for k, v in metrics[-1].items()},
         "kernel_launches_per_step": launches,
         "settings": settings(cfg),
         **proposals,
         **profiled,
+        **chained,
     }
 
 
@@ -326,6 +381,9 @@ def main(argv=None):
     p.add_argument("--profile", type=int, default=0, metavar="N",
                    help="then trace N more requests with torch.profiler and "
                         "add the device time by kernel to the line")
+    p.add_argument("--steps-per-dispatch", type=int, default=1, metavar="K",
+                   help="train: also time make_train_step(chain=K), K steps "
+                        "a call (a CUDA graph's replays)")
     args = p.parse_args(argv)
 
     if not torch.cuda.is_available():

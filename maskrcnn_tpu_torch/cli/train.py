@@ -7,7 +7,7 @@
         [--dataset synthetic|coco|depth --coco-root DIR --coco-split S \\
          --eval-split S --category-filter A,B --buckets HxW,HxW \\
          --loader-workers N --depth-manifest LIST] \\
-        [--pretrained-npz NPZ] [--profile-dir DIR] \\
+        [--pretrained-npz NPZ] [--profile-dir DIR] [--steps-per-dispatch K] \\
         [--set SECTION.KEY=VALUE ...] [--device cuda|cpu]
 
     torchrun --nproc_per_node N -m maskrcnn_tpu_torch.cli.train \\
@@ -61,7 +61,19 @@ it broadcasts; every rank restores the same checkpoint on ``--resume``.
 or an ImageNet ResNet-50's backbone; rank 0 loads, then every rank takes
 its weights). ``--profile-dir`` writes a ``torch.profiler`` trace of steps
 10–20 (Chrome trace JSON, which Perfetto and TensorBoard read; rank 0's
-under DP).
+under DP; with chaining, the chains that span those steps).
+
+``--steps-per-dispatch K`` chains K optimizer steps into one call of the
+step (``make_train_step(chain=K)``: on the GPU the replays of a CUDA graph
+of the step, JAX's ``lax.scan``), with exactly the K sequential steps'
+results. K follows the JAX CLI's rule (:func:`dispatch_chain`): 1 under
+``--data-parallel``, with more than one bucket, or on the CPU unless asked;
+else the largest divisor of the logging, snapshot and evaluation periods,
+the steps left and the resumed step that is at most the cap
+(``--steps-per-dispatch``, else 20), so every boundary falls on a chain's
+end. The log still has one row per logged step, the same rows as K=1; the
+non-finite trap reads every step's loss at the first chain end at or after
+each multiple of 20.
 """
 
 from __future__ import annotations
@@ -69,14 +81,10 @@ from __future__ import annotations
 import argparse
 import dataclasses
 import json
+import math
 import os
 import time
 
-# options of the JAX CLI that the port does not have yet, and the ROADMAP
-# item that brings each
-UNPORTED = {
-    "steps_per_dispatch": "A.7 (chained dispatch is TPU plumbing; CUDA graphs are its analogue)",
-}
 # the non-finite-loss trap reads the loss once every this many steps, so the
 # host does not wait for the device on every step
 TRAP_EVERY = 20
@@ -148,9 +156,12 @@ def parse_args(argv=None):
     p.add_argument("--profile-dir", default=None,
                    help="write a torch.profiler trace of steps 10-20 here")
     p.add_argument("--steps-per-dispatch", type=int, default=None,
-                   help="not ported yet")
+                   help="optimizer steps chained into one call of the step "
+                        "(a CUDA graph's replays on the GPU); default: up "
+                        "to 20 on the GPU, 1 on the CPU")
     args = p.parse_args(argv)
-    reject_unported(p, args, UNPORTED)
+    if args.steps_per_dispatch is not None and args.steps_per_dispatch < 1:
+        p.error("--steps-per-dispatch must be at least 1")
     check_data_args(p, args)
     from maskrcnn_tpu_torch.parallel.data_parallel import launched_by_torchrun
 
@@ -197,13 +208,39 @@ def coco_label_names(names, loader, cfg):
 
 
 
-def reject_unported(parser, args, options: dict):
-    """Exit with an error naming the ROADMAP item for each given option that
-    the port does not have yet: never ignore one."""
-    for key, item in options.items():
-        if getattr(args, key):
-            parser.error(f"--{key.replace('_', '-')}: not in the port yet, "
-                         f"see ROADMAP {item}")
+def dispatch_chain(steps_per_dispatch: int | None, *, on_cpu: bool,
+                   data_parallel: bool, multi_shape: bool, log_every: int,
+                   snapshot_every: int, eval_every: int, iterations: int,
+                   start: int) -> tuple[int, str | None]:
+    """The JAX CLI's choice of K, the steps chained into one call → (K, a
+    note to print or None). K=1 under data parallelism, with more than one
+    bucket shape, or with no steps left (a note if K > 1 was asked for); 1
+    on the CPU when not asked for; else the largest divisor of gcd(log,
+    snapshot, eval, steps left, start) that is at most the cap (the asked K,
+    else 20), with a note when that is not the asked K."""
+    asked = steps_per_dispatch
+    total_left = iterations - start
+    if data_parallel or multi_shape or total_left <= 0:
+        note = None
+        if asked and asked > 1:
+            note = (f"[dispatch] --steps-per-dispatch {asked} ignored "
+                    "(data-parallel or multi-bucket run)")
+        return 1, note
+    if asked is None and on_cpu:
+        return 1, None
+    g = math.gcd(log_every, snapshot_every)
+    if eval_every:
+        g = math.gcd(g, eval_every)
+    g = math.gcd(g, total_left)
+    if start:
+        g = math.gcd(g, start)
+    cap = asked if asked else 20
+    chain = next(d for d in range(max(min(cap, g), 1), 0, -1) if g % d == 0)
+    note = None
+    if asked and chain != asked:
+        note = (f"[dispatch] --steps-per-dispatch {asked} does not divide the "
+                f"log/snapshot/eval boundaries; using {chain}")
+    return chain, note
 
 
 def build_config(preset: str, label_file: str | None, overrides: list[str],
@@ -308,7 +345,7 @@ def _train(args, cfg, label_names, device, rank, world, lead):
         save_checkpoint,
     )
     from maskrcnn_tpu_torch.train.state import create_train_state, lr_schedule
-    from maskrcnn_tpu_torch.train.step import make_train_step
+    from maskrcnn_tpu_torch.train.step import make_train_step, stack_batches
     from maskrcnn_tpu_torch.utils.metrics import MetricLogger
 
     filt = category_filter(args.category_filter)
@@ -365,12 +402,26 @@ def _train(args, cfg, label_names, device, rank, world, lead):
         stream = data.iter_from(start)
         if world > 1:
             stream = dp.shard_stream(stream, rank, world)
-    batches = Prefetcher(stream, size=2)
-    steps = {}  # one train step per bucket shape
+    multi_shape = (args.dataset == "coco" and cfg.train.image_buckets is not None
+                   and len(cfg.train.image_buckets) > 1)
+    chain, note = dispatch_chain(
+        args.steps_per_dispatch, on_cpu=device.type == "cpu",
+        data_parallel=args.data_parallel, multi_shape=multi_shape,
+        log_every=args.log_every, snapshot_every=args.snapshot_every,
+        eval_every=args.eval_every, iterations=cfg.train.iterations,
+        start=start)
+    if note and lead:
+        print(note)
+    if chain > 1 and lead:
+        print(f"[dispatch] chaining {chain} steps per call of the step")
+    # hold a chain's worth of batches, and the next
+    batches = Prefetcher(stream, size=max(2, 2 * chain))
+    steps = {}  # one train step per bucket shape (and chain length)
 
     def step_for(hw):
         if hw not in steps:
-            steps[hw] = make_train_step(cfg, image_size=hw)
+            steps[hw] = (make_train_step(cfg, image_size=hw) if chain == 1 else
+                         make_train_step(cfg, image_size=hw, chain=chain))
         return steps[hw]
 
     sched = lr_schedule(cfg)
@@ -453,29 +504,40 @@ def _train(args, cfg, label_names, device, rank, world, lead):
         if lead:
             return save_checkpoint(ckpt_dir, state, step_i)
 
-    profiler, profiled = None, False
+    profiler, profiled, first_profiled = None, False, None
     it = start
     while it < cfg.train.iterations:
-        batch = next(batches)
+        if chain > 1:
+            batch = stack_batches([next(batches) for _ in range(chain)])
+            hw = tuple(batch.images.shape[2:4])
+        else:
+            batch = next(batches)
+            hw = tuple(batch.images.shape[1:3])
         if (args.profile_dir and lead and not profiled and profiler is None
-                and it - start >= 10):
-            profiler = start_profiler(device)
-        metrics = step_for(tuple(batch.images.shape[1:3]))(state, batch)
-        step_i = it + 1
+                and it + chain - start > 10):
+            profiler, first_profiled = start_profiler(device), it + 1
+        metrics = step_for(hw)(state, batch)
+        if chain == 1:
+            metrics = {k: v.reshape(1) for k, v in metrics.items()}
+        step_i = it + chain
         if profiler is not None and step_i - start >= 20:
-            print(f"[profile] steps {start + 11}-{step_i}: "
+            print(f"[profile] steps {first_profiled}-{step_i}: "
                   f"{stop_profiler(profiler, device, args.profile_dir, rank)}")
             profiler, profiled = None, True
-        if step_i % TRAP_EVERY == 0:
+        if step_i // TRAP_EVERY > it // TRAP_EVERY:
             # every rank reads the same summed loss, so all stop together
-            loss = float(metrics["loss"])
-            if not np.isfinite(loss):
+            losses = metrics["loss"].float().cpu().numpy()
+            if not np.isfinite(losses).all():
                 path = snapshot(step_i)
-                parts = {k: float(v) for k, v in metrics.items()}
-                raise SystemExit(f"[trap] non-finite loss at step {step_i}; "
-                                 f"breakdown {parts}; state dumped to {path}")
-        if lead and (step_i % args.log_every == 0 or step_i == 1):
-            scalars = {k: float(v) for k, v in metrics.items()}
+                bad = it + 1 + int(np.argmin(np.isfinite(losses)))
+                parts = {k: v.tolist() for k, v in metrics.items()}
+                raise SystemExit(f"[trap] non-finite loss at step {bad} "
+                                 f"(chain ending {step_i}); breakdown {parts}; "
+                                 f"state dumped to {path}")
+        for j, s in enumerate(range(it + 1, step_i + 1)):
+            if not lead or (s % args.log_every and s != 1):
+                continue
+            scalars = {k: float(v[j]) for k, v in metrics.items()}
             # share of batch fetches that found the prefetch queue empty
             # (near 1: the host's data preparation bounds the run)
             scalars["prefetch_starved"] = batches.starved / max(batches.served, 1)
@@ -484,9 +546,9 @@ def _train(args, cfg, label_names, device, rank, world, lead):
             if device.type == "cuda":
                 scalars["peak_memory_gib"] = (
                     torch.cuda.max_memory_allocated(device) / 2**30)
-            logger.log(step_i, scalars,
+            logger.log(s, scalars,
                        n_images=cfg.train.batch_size * args.log_every,
-                       lr=sched(step_i))
+                       lr=sched(s))
         if step_i % args.snapshot_every == 0 or step_i == cfg.train.iterations:
             if lead:
                 print(f"saved {snapshot(step_i)}")

@@ -34,10 +34,12 @@ from maskrcnn_tpu_torch.models.layers import Conv2d
 
 def _run(backbone: nn.Module, fn, x, train: bool):
     """``fn(x, train)``, checkpointed when the backbone remats and autograd
-    records."""
+    records. Nothing random runs in the region, so the recompute needs no
+    saved RNG state (``preserve_rng_state=False``), and reading the RNG
+    state would stop the card from capturing the step into a CUDA graph."""
     if backbone.remat and torch.is_grad_enabled():
         return checkpoint(
-            fn, x, train, use_reentrant=False,
+            fn, x, train, use_reentrant=False, preserve_rng_state=False,
             context_fn=lambda: (contextlib.nullcontext(),
                                 statistics_held(backbone)))
     return fn(x, train)

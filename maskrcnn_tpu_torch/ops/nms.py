@@ -1,13 +1,18 @@
 """Fixed-shape exact greedy NMS (port of ``maskrcnn_tpu/ops/nms.py``).
 
-``nms_padded`` keeps ``n_out`` slots plus a validity mask. It solves the
-greedy recurrence ``keep[i] = valid[i] and no kept j before i with
-IoU(j, i) > t`` by Jacobi iteration over the full IoU matrix, stopping at
-convergence. The system is acyclic (edges only run from earlier to later
-boxes in score order), so the fixpoint is unique and equals sequential
-greedy NMS; any exact method returns the same indices. The JAX package
-streams chunks above 4096 boxes to bound TPU memory; one H100 holds the
-6000-box matrix of the test-time RPN budget (144 MB) outright.
+``nms_padded`` keeps ``n_out`` slots plus a validity mask: it sorts by
+score, solves the greedy recurrence ``keep[i] = valid[i] and no kept j
+before i with IoU(j, i) > t`` and compacts the kept boxes, all on the
+tensors' device with no host sync, so a train step that runs it can be
+captured into a CUDA graph. The recurrence is acyclic (edges only run from
+earlier to later boxes in score order), so its fixpoint is unique and
+equals sequential greedy NMS; any exact method returns the same indices.
+On the card it is the hand-written kernel of
+:mod:`maskrcnn_tpu_torch.kernels.nms_cuda` (a 64-bit suppression mask over
+the upper triangle, 18 MB an image at the train step's 12000 boxes, then a
+walk 64 boxes at a time); on the CPU its plain version, the Jacobi loop.
+The JAX package streams chunks above 4096 boxes to bound TPU memory; the
+indices are the same.
 
 Leading dimensions batch independent problems: per-class NMS in predict
 runs (n_fg, R) scores in one call.
@@ -17,7 +22,7 @@ from __future__ import annotations
 
 import torch
 
-from maskrcnn_tpu_torch.ops.boxes import box_iou
+from maskrcnn_tpu_torch.kernels.nms_cuda import nms_greedy
 
 _NEG_INF = -1e30
 
@@ -52,23 +57,15 @@ def nms_padded(
     boxes_s = torch.gather(boxes, -2, order[..., None].expand(boxes.shape))
     valid_s = torch.gather(valid, -1, order)
 
-    pos = torch.arange(n, device=boxes.device)
-    earlier = pos[:, None] < pos[None, :]
-    # sup[..., j, i]: kept box j (earlier in score order) suppresses box i
-    sup = ((box_iou(boxes_s, boxes_s) > iou_thresh) & earlier).float()
-    keep = valid_s
-    for _ in range(n + 1):
-        hit = torch.matmul(keep.float()[..., None, :], sup)[..., 0, :]
-        new = valid_s & (hit < 0.5)
-        if torch.equal(new, keep):
-            break
-        keep = new
+    lead = scores.shape[:-1]
+    keep = nms_greedy(boxes_s.reshape(-1, n, 4).contiguous(),
+                      valid_s.reshape(-1, n).contiguous(), iou_thresh,
+                      n_out).reshape(lead + (n,))
 
     # compact the kept boxes (already score-sorted) into n_out slots
     rank = torch.cumsum(keep.long(), dim=-1) - 1
     in_range = keep & (rank < n_out)
     slot = torch.where(in_range, rank, torch.full_like(rank, n_out))
-    lead = keep.shape[:-1]
     indices = torch.zeros(lead + (n_out + 1,), dtype=torch.long,
                           device=boxes.device).scatter_(-1, slot, order)
     out_valid = torch.zeros(lead + (n_out + 1,), dtype=torch.bool,

@@ -46,6 +46,7 @@ import torch
 
 from maskrcnn_tpu_torch.kernels.region_scatter_cuda import region_scatter
 from maskrcnn_tpu_torch.kernels.roi_align_cuda import CHANNEL_TILE, roi_align_fwd
+from maskrcnn_tpu_torch.utils.device import device_constant
 
 
 def _level_layout(features, widths=None):
@@ -114,7 +115,7 @@ def region_params(
     lv = roi_levels.long()
 
     def per_level(values, dtype):
-        return torch.as_tensor(np.asarray(values), dtype=dtype, device=dev)[lv]
+        return device_constant(values, dtype, dev)[lv]
 
     scales = per_level(np.asarray(spatial_scales, np.float32), torch.float32)
     lvl_h = per_level(shapes[:, 0], torch.float32)
@@ -376,11 +377,11 @@ def roi_align_gather(features, rois, roi_batch_idx, roi_levels, out_size,
     sr = sampling_ratio
     r = rois.shape[0]
     lv = roi_levels.long()
-    scales = torch.as_tensor(np.asarray(spatial_scales, np.float32),
-                             device=dev)[lv]
-    lvl_h = torch.as_tensor(shapes[:, 0], dtype=torch.float32, device=dev)[lv]
-    lvl_w = torch.as_tensor(shapes[:, 1], dtype=torch.float32, device=dev)[lv]
-    lvl_off = torch.as_tensor(offsets, dtype=torch.int64, device=dev)[lv]
+    scales = device_constant(np.asarray(spatial_scales, np.float32),
+                             torch.float32, dev)[lv]
+    lvl_h = device_constant(shapes[:, 0], torch.float32, dev)[lv]
+    lvl_w = device_constant(shapes[:, 1], torch.float32, dev)[lv]
+    lvl_off = device_constant(offsets, torch.int64, dev)[lv]
     block = lvl_off + roi_batch_idx.long() * (lvl_h * lvl_w).long()
 
     rois = rois.float()

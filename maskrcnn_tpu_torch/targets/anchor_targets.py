@@ -34,7 +34,9 @@ def keep_top_random(mask: torch.Tensor, u: torch.Tensor, k, k_max: int):
     k_max = min(k_max, mask.shape[-1])
     pri = torch.where(mask, u, torch.full_like(u, -1.0))
     top_vals = torch.topk(pri, k_max, dim=-1).values  # descending
-    k = torch.as_tensor(k, device=mask.device).expand(mask.shape[0])
+    if not isinstance(k, torch.Tensor):
+        k = torch.full((), k, dtype=torch.int64, device=mask.device)
+    k = k.expand(mask.shape[0])
     kth = torch.gather(top_vals, 1, (k - 1).clamp(0, k_max - 1)[:, None].long())
     return mask & (pri >= kth) & (k > 0)[:, None]
 

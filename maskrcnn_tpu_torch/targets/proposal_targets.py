@@ -25,6 +25,7 @@ import torch
 
 from maskrcnn_tpu_torch.ops.boxes import bbox2loc, box_iou
 from maskrcnn_tpu_torch.ops.levels import map_rois_to_fpn_levels
+from maskrcnn_tpu_torch.utils.device import device_constant
 
 
 class ProposalTargets(NamedTuple):
@@ -64,8 +65,8 @@ def proposal_targets(
 ) -> ProposalTargets:
     dev = rois.device
     n_pos_cap = int(round(n_sample * pos_ratio))
-    mean = torch.tensor(loc_normalize_mean, dtype=torch.float32, device=dev)
-    std = torch.tensor(loc_normalize_std, dtype=torch.float32, device=dev)
+    mean = device_constant(loc_normalize_mean, torch.float32, dev)
+    std = device_constant(loc_normalize_std, torch.float32, dev)
 
     all_rois = torch.cat([rois, gt_boxes], dim=1)  # (B, R+G, 4)
     all_valid = torch.cat([roi_valid, gt_valid], dim=1)

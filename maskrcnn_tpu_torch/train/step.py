@@ -28,8 +28,24 @@ summed over the ranks, trainable BatchNorms take global batch statistics
 counts are summed over the ranks (JAX's ``psum``, not ``pmean``); with
 ``grad_accum_steps`` the micro-gradients are averaged first, each
 micro-batch dividing by its own global counts. Then the optimizer steps,
-and the running statistics are averaged over the ranks. Chained dispatch is
-not here.
+and the running statistics are averaged over the ranks.
+
+Nothing in a step waits for the device: the batch goes up by copies that
+do not wait, NMS is a kernel, the learning rate is computed on the device
+from a step counter (:func:`maskrcnn_tpu_torch.train.state.lr_on_device`)
+and the kernels' shapes are static. So on the card the step can be
+captured into a CUDA graph, which is what chained dispatch does
+(``make_train_step(cfg, chain=K)``, JAX's ``lax.scan`` over K batches):
+one call runs K optimizer steps, exactly K sequential steps. On the CPU
+the chained step is a Python loop of the step; on the card the first call
+takes its first step eagerly (a step of the run, which warms up cuBLAS,
+cuDNN, the momentum buffers and the gradients' memory), captures one step
+into a ``torch.cuda.CUDAGraph`` that reads its batch and its sampler draws
+from static device buffers, and replays it for the rest; later calls
+replay it K times. The draws are made eagerly before the replays, in the
+eager step's order, from ``state.generator``, so replayed steps sample
+what eager steps sample and the generator resumes alike. Not under data
+parallelism (as in JAX).
 """
 
 from __future__ import annotations
@@ -37,9 +53,11 @@ from __future__ import annotations
 import contextlib
 from typing import NamedTuple
 
+import numpy as np
 import torch
 
 from maskrcnn_tpu_torch.config import Config
+from maskrcnn_tpu_torch.kernels import nms_cuda, region_scatter_cuda, roi_align_cuda
 from maskrcnn_tpu_torch.models.maskrcnn import (
     MaskRCNN,
     backbone_geometry,
@@ -56,7 +74,12 @@ from maskrcnn_tpu_torch.targets.proposal_targets import (
     proposal_targets,
 )
 from maskrcnn_tpu_torch.train import losses as L
-from maskrcnn_tpu_torch.train.state import TrainState, lr_schedule
+from maskrcnn_tpu_torch.train.state import TrainState, lr_on_device, lr_schedule
+
+# the hand-written kernels a step can launch; a replayed graph launches what
+# its capture recorded, so the chained step adds those to their counters
+KERNELS = (roi_align_cuda.roi_align_fwd, region_scatter_cuda.region_scatter,
+           nms_cuda.nms_greedy)
 
 
 class Batch(NamedTuple):
@@ -80,6 +103,13 @@ def _map(fn, batch: Batch) -> Batch:
     return Batch(*(None if x is None else fn(x) for x in batch))
 
 
+def stack_batches(raw: list) -> Batch:
+    """K numpy batches → one whose every field has a leading (K, ...) axis,
+    the input of a chained step."""
+    return type(raw[0])(*(None if x[0] is None else np.stack(x)
+                          for x in zip(*raw)))
+
+
 class SamplerDraws(NamedTuple):
     """Uniform [0, 1) priorities of one step; index 0 of dim 1 ranks the
     positives, index 1 the negatives."""
@@ -88,7 +118,17 @@ class SamplerDraws(NamedTuple):
     anchor: torch.Tensor  # (B, 2, A)
 
 
-def make_train_step(cfg: Config, image_size: tuple[int, int] | None = None):
+def to_device(fields, dev):
+    """Every field of a ``Batch`` or ``SamplerDraws`` (numpy or tensors) on
+    ``dev``. Copies from the host do not wait for the device: a pageable
+    source is staged before the call returns."""
+    return type(fields)(*(None if x is None else
+                          torch.as_tensor(x).to(dev, non_blocking=True)
+                          for x in fields))
+
+
+def make_train_step(cfg: Config, image_size: tuple[int, int] | None = None,
+                    chain: int = 1):
     """``train_step(state, batch, draws=None) -> metrics`` for one static
     image size (with ``cfg.train.image_buckets``, build one per bucket).
 
@@ -99,6 +139,13 @@ def make_train_step(cfg: Config, image_size: tuple[int, int] | None = None):
     the generator's (tests feed another framework's); it runs with
     gradients and the backbone's ``train`` flag set, whatever the model's
     ``train()``/``eval()`` mode, which the port's modules do not read.
+
+    ``chain=K > 1`` returns ``chained(state, batches, draws=None) ->
+    metrics`` instead: every field of ``batches`` (and of ``draws``) carries
+    a leading ``(K, ...)`` axis, the call runs exactly K sequential steps,
+    each metric comes back stacked ``(K,)`` and ``state.step`` advances by
+    K. On the card the steps after the first call's first are replays of a
+    CUDA graph of the step (the module's docstring).
     """
     feat_strides, _ = backbone_geometry(cfg)
     feat_shapes = pyramid_shapes(cfg, image_size or cfg.train.image_size)
@@ -110,13 +157,24 @@ def make_train_step(cfg: Config, image_size: tuple[int, int] | None = None):
     if cfg.train.batch_size % accum != 0:
         raise ValueError(f"batch_size {cfg.train.batch_size} not divisible by "
                          f"grad_accum_steps {accum}")
+    if chain < 1:
+        raise ValueError(f"chain must be at least 1, got {chain}")
     rank, world = dp.rank_world()
     parallel = world > 1
     if cfg.train.batch_size % world != 0:
         raise ValueError(f"batch_size {cfg.train.batch_size} not divisible by "
                          f"the world size {world}")
+    if parallel and chain > 1:
+        raise ValueError("chain > 1 under data parallelism: the JAX package "
+                         "chains only the one-device step too")
     schedule = lr_schedule(cfg)
-    anchors_on = {}
+    on_device = {}  # device → (anchors, step counter)
+
+    def device_state(dev):
+        if dev not in on_device:
+            on_device[dev] = (torch.as_tensor(anchors_np, device=dev),
+                              torch.zeros((), dtype=torch.int64, device=dev))
+        return on_device[dev]
 
     def loss_fn(model: MaskRCNN, batch: Batch, draws: SamplerDraws, anchors):
         features, rpn_locs, rpn_scores = model(batch.images, train=True)
@@ -196,33 +254,25 @@ def make_train_step(cfg: Config, image_size: tuple[int, int] | None = None):
         return L.LossBreakdown(total, rpn_loc_loss, rpn_cls_loss,
                                roi_loc_loss, roi_cls_loss, mask_loss), counts
 
-    def train_step(state: TrainState, batch: Batch,
-                   draws: SamplerDraws | None = None) -> dict:
-        model = state.model
-        dev = model.device
-        if dev not in anchors_on:
-            anchors_on[dev] = torch.as_tensor(anchors_np, device=dev)
-        anchors = anchors_on[dev]
-        batch = _map(lambda x: torch.as_tensor(x, device=dev), batch)
-        b = batch.images.shape[0]
-        if b % accum != 0:
-            raise ValueError(
-                f"batch {b} not divisible by grad_accum_steps {accum}"
-                + (f" (global batch {cfg.train.batch_size} over {world} "
-                   "ranks: the local batch must split evenly into "
-                   "micro-batches)" if parallel else ""))
-        if draws is None:
-            # the global table, then this rank's rows of it
-            n_cand = cfg.proposals.n_train_post_nms + batch.gt_boxes.shape[1]
-            rows = slice(rank * b, (rank + 1) * b)
-            draws = SamplerDraws(
-                torch.rand((b * world, 2, n_cand), generator=state.generator,
-                           device=dev)[rows],
-                torch.rand((b * world, 2, anchors.shape[0]),
-                           generator=state.generator, device=dev)[rows])
-        else:
-            draws = SamplerDraws(*(torch.as_tensor(x, device=dev) for x in draws))
+    def draw(state: TrainState, batch: Batch, n_anchor: int) -> SamplerDraws:
+        """This rank's rows of the global sampler table, from the
+        generator; ``batch`` gives the local batch and the GT slots."""
+        b, n_gt = batch.gt_boxes.shape[-3:-1]
+        dev = state.model.device
+        n_cand = cfg.proposals.n_train_post_nms + n_gt
+        rows = slice(rank * b, (rank + 1) * b)
+        return SamplerDraws(
+            torch.rand((b * world, 2, n_cand), generator=state.generator,
+                       device=dev)[rows],
+            torch.rand((b * world, 2, n_anchor), generator=state.generator,
+                       device=dev)[rows])
 
+    def body(state: TrainState, batch: Batch, draws: SamplerDraws, anchors,
+             step_count) -> dict:
+        """One step on device tensors: the part a CUDA graph captures. It
+        reads the learning rate from ``step_count`` and advances it."""
+        model = state.model
+        b = batch.images.shape[0]
         state.optimizer.zero_grad(set_to_none=True)
         micro = b // accum
         bds, counts = [], []
@@ -246,14 +296,136 @@ def make_train_step(cfg: Config, image_size: tuple[int, int] | None = None):
             totals = torch.cat([bd.double(), count.double()])
             dp.all_reduce_sum_(grads + [totals])
             bd, count = totals[:len(bds[0])].float(), totals[len(bds[0]):].long()
-        for group in state.optimizer.param_groups:
-            group["lr"] = schedule(state.step)
-        state.optimizer.step()
-        state.step += 1
+        state.optimizer.step(lr_on_device(cfg, step_count))
+        step_count.add_(1)
         if parallel:
             dp.average_running_statistics(model)
         n_valid, n_pos = count
         return {**L.LossBreakdown(*bd)._asdict(), "n_valid_rois": n_valid,
                 "n_pos_rois": n_pos}
 
-    return train_step
+    def advance(state: TrainState, n: int):
+        """The host's side of ``n`` steps: the step count, and each group's
+        ``lr`` as the record of the last rate used."""
+        for group in state.optimizer.param_groups:
+            group["lr"] = schedule(state.step + n - 1)
+        state.step += n
+
+    def train_step(state: TrainState, batch: Batch,
+                   draws: SamplerDraws | None = None) -> dict:
+        dev = state.model.device
+        anchors, step_count = device_state(dev)
+        batch = to_device(batch, dev)
+        b = batch.images.shape[0]
+        if b % accum != 0:
+            raise ValueError(
+                f"batch {b} not divisible by grad_accum_steps {accum}"
+                + (f" (global batch {cfg.train.batch_size} over {world} "
+                   "ranks: the local batch must split evenly into "
+                   "micro-batches)" if parallel else ""))
+        draws = (draw(state, batch, anchors.shape[0]) if draws is None
+                 else to_device(SamplerDraws(*draws), dev))
+        step_count.fill_(state.step)
+        metrics = body(state, batch, draws, anchors, step_count)
+        advance(state, 1)
+        return metrics
+
+    if chain == 1:
+        return train_step
+
+    graphs = {}  # device → the captured step of that device's state
+
+    def chained(state: TrainState, batches: Batch,
+                draws: SamplerDraws | None = None) -> dict:
+        k = batches.images.shape[0]
+        if k != chain:
+            raise ValueError(f"batches hold {k} steps, the chain {chain}")
+        dev = state.model.device
+        pick = (lambda i: None) if draws is None else (
+            lambda i: SamplerDraws(*(x[i] for x in draws)))
+        if dev.type != "cuda":
+            rows = [train_step(state, _map(lambda x: x[i], batches), pick(i))
+                    for i in range(chain)]
+            return {key: torch.stack([r[key] for r in rows]) for key in rows[0]}
+        anchors, step_count = device_state(dev)
+        batches = to_device(batches, dev)
+        if draws is None:  # eagerly, in the eager steps' order
+            per_step = [draw(state, batches, anchors.shape[0])
+                        for _ in range(chain)]
+        else:
+            draws = to_device(SamplerDraws(*draws), dev)
+            per_step = [SamplerDraws(*(x[i] for x in draws)) for i in range(chain)]
+        graph = graphs.get(dev)
+        step_count.fill_(state.step)
+        rows = []
+        if graph is None or not graph.captured_for(state):
+            # the chain's first step runs eagerly and warms up the capture
+            graph = graphs[dev] = GraphedStep(
+                body, state, _map(lambda x: x[0], batches), per_step[0],
+                anchors, step_count)
+            rows.append(graph.first_metrics)
+        for i in range(len(rows), chain):
+            graph.replay(_map(lambda x: x[i], batches), per_step[i])
+            # the graph's outputs hold until the next replay: copy them out
+            rows.append({key: v.clone() for key, v in graph.metrics.items()})
+        advance(state, chain)
+        return {key: torch.stack([r[key] for r in rows]) for key in rows[0]}
+
+    return chained
+
+
+class GraphedStep:
+    """One train step captured into a ``torch.cuda.CUDAGraph``.
+
+    Made by taking one real step eagerly (``first_metrics``) on a side
+    stream, then capturing ``body`` on that stream against static copies
+    of the batch and draws. ``replay(batch, draws)`` copies its inputs into
+    those buffers and replays, all queued on the current stream behind the
+    work before it; ``metrics`` holds the last replay's results until the
+    next replay. The launch counters of :data:`KERNELS` rise at capture,
+    when nothing runs; the capture's counts are taken back and added again
+    at every replay. The graph is bound to the tensors of the state it was
+    captured with (parameters, buffers, gradients, momentum buffers):
+    :meth:`captured_for` tells whether a state still has them.
+    """
+
+    def __init__(self, body, state: TrainState, batch: Batch,
+                 draws: SamplerDraws, anchors, step_count):
+        self.stream = torch.cuda.Stream(device=anchors.device)
+        self.stream.wait_stream(torch.cuda.current_stream(anchors.device))
+        with torch.cuda.stream(self.stream):
+            self.first_metrics = body(state, batch, draws, anchors, step_count)
+        self.batch = _map(torch.clone, batch)
+        self.draws = SamplerDraws(*(x.clone() for x in draws))
+        self.graph = torch.cuda.CUDAGraph()
+        before = [k.launches for k in KERNELS]
+        with torch.cuda.graph(self.graph, stream=self.stream):
+            self.metrics = body(state, self.batch, self.draws, anchors,
+                                step_count)
+        self.launches = [k.launches - n for k, n in zip(KERNELS, before)]
+        for kernel, n in zip(KERNELS, self.launches):
+            kernel.launches -= n
+        torch.cuda.current_stream(anchors.device).wait_stream(self.stream)
+        self.state_id, self.tensors = id(state), self.fingerprint(state)
+
+    @staticmethod
+    def fingerprint(state: TrainState) -> tuple:
+        model, opt = state.model, state.optimizer
+        return tuple(
+            [t.data_ptr() for t in model.parameters()]
+            + [t.data_ptr() for t in model.buffers()]
+            + [opt.state[p]["momentum_buffer"].data_ptr()
+               for p in model.parameters() if p in opt.state])
+
+    def captured_for(self, state: TrainState) -> bool:
+        return id(state) == self.state_id and self.fingerprint(state) == self.tensors
+
+    def replay(self, batch: Batch, draws: SamplerDraws):
+        for static, x in zip(self.batch, batch):
+            if static is not None:
+                static.copy_(x, non_blocking=True)
+        for static, x in zip(self.draws, draws):
+            static.copy_(x, non_blocking=True)
+        self.graph.replay()
+        for kernel, n in zip(KERNELS, self.launches):
+            kernel.launches += n

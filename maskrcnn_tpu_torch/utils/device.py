@@ -2,8 +2,10 @@
 
 from __future__ import annotations
 
+import functools
 import subprocess
 
+import numpy as np
 import torch
 
 
@@ -27,3 +29,19 @@ def card_name_and_power_limit() -> str:
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, check=True, timeout=60).stdout
     return out.strip().splitlines()[0]
+
+
+def device_constant(values, dtype: torch.dtype, device) -> torch.Tensor:
+    """``torch.tensor(values)`` on ``device``, made once per (values, dtype,
+    device) and shared: a step that reads it copies nothing from the host,
+    so the card can capture the step into a CUDA graph (a copy from the
+    host waits for the device). Never write into it."""
+    arr = np.array(values, order="C")
+    return _constant(arr.tobytes(), arr.dtype.str, arr.shape, dtype,
+                     torch.device(device))
+
+
+@functools.lru_cache(maxsize=None)
+def _constant(data: bytes, np_dtype: str, shape: tuple, dtype, device):
+    arr = np.frombuffer(data, dtype=np_dtype).reshape(shape).copy()
+    return torch.as_tensor(arr, dtype=dtype, device=device)

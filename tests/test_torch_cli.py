@@ -12,10 +12,10 @@ checkpoint, all in this process:
   sampler generator);
 - ``cli.evaluate --weight`` gives the in-run report and the same detections
   exactly (a spy on the evaluator's predict records them: random weights at
-  this size score 0.0 AP, so the report alone would not tell);
-- options the port does not have yet exit with the ROADMAP item that brings
-  them (the COCO options, ported since, are held in
-  ``tests/test_torch_coco_cli.py``).
+  this size score 0.0 AP, so the report alone would not tell).
+
+``--steps-per-dispatch``, the last JAX option the port lacked, is held in
+``tests/test_torch_chain.py``.
 """
 
 import json
@@ -166,18 +166,6 @@ def test_evaluate_reproduces_the_in_run_report(runs):
         assert torch.equal(got[0][k], want[0][k]), k
 
 
-@pytest.mark.parametrize("cli, argv, item", [
-    ("train", ["--steps-per-dispatch", "4"], "A.7"),
-])
-def test_unported_options_exit_naming_their_roadmap_item(cli, argv, item, capsys):
-    main = train_cli.parse_args if cli == "train" else eval_cli.main
-    with pytest.raises(SystemExit) as e:
-        main(argv + ["--device", "cpu"])
-    assert e.value.code == 2
-    err = capsys.readouterr().err
-    assert "not in the port yet" in err and f"ROADMAP {item}" in err
-
-
 def _small_state(momentum_dtype=None, freeze_bn=False):
     cfg = tcfg._rep(tcfg.fpn_mask(), model=dict(n_fg_class=3, freeze_bn=freeze_bn),
                     train=dict(batch_size=2, image_size=(128, 160),
@@ -215,7 +203,7 @@ def test_checkpoint_round_trip_is_exact(momentum_dtype, tmp_path):
     assert sum(k.endswith("running_mean") for k in want) > 50
     for k in want:
         assert torch.equal(got[k], want[k]), k
-    assert isinstance(fresh.optimizer, MomentumSGD) == (momentum_dtype is not None)
+    assert isinstance(fresh.optimizer, MomentumSGD)
     for p_want, p_got in zip(state.model.parameters(), fresh.model.parameters()):
         b_want = state.optimizer.state[p_want]["momentum_buffer"]
         b_got = fresh.optimizer.state[p_got]["momentum_buffer"]

@@ -9,6 +9,7 @@ one (the tests' conftest imports JAX, which that machine need not have):
 the main path's shapes.
 """
 
+import numpy as np
 import pytest
 
 torch = pytest.importorskip("torch")
@@ -19,6 +20,7 @@ from maskrcnn_tpu_torch.data.synthetic import (  # noqa: E402
     SyntheticRequests,
 )
 from maskrcnn_tpu_torch.eval.predict import make_predict_fn  # noqa: E402
+from maskrcnn_tpu_torch.kernels import nms_cuda  # noqa: E402
 from maskrcnn_tpu_torch.kernels.region_scatter_cuda import (  # noqa: E402
     region_scatter,
     region_scatter_exact,
@@ -33,6 +35,8 @@ from maskrcnn_tpu_torch.kernels.roi_align_cuda import (  # noqa: E402
 )
 from maskrcnn_tpu_torch.models.maskrcnn import MaskRCNN  # noqa: E402
 from maskrcnn_tpu_torch.train.state import create_train_state  # noqa: E402
+from maskrcnn_tpu_torch.ops.nms import nms_padded  # noqa: E402
+from maskrcnn_tpu_torch.train import step as step_mod  # noqa: E402
 from maskrcnn_tpu_torch.train.step import make_train_step  # noqa: E402
 
 pytestmark = pytest.mark.cuda
@@ -719,3 +723,106 @@ def test_pretrained_npz_loads_on_the_card_as_on_the_cpu(cuda, preset, backbone, 
         assert torch.equal(v.cpu(), want[k]), k
     det = make_predict_fn(cfg, models["cuda"])(*SyntheticRequests(cfg).batch(0))
     assert bool(torch.isfinite(det.boxes).all() and torch.isfinite(det.scores).all())
+
+
+def _nms_case(lead, n, seed):
+    rng = np.random.RandomState(seed)
+    yx = rng.uniform(0, 800, lead + (n, 2))
+    hw = rng.uniform(4, 200, lead + (n, 2))
+    boxes = np.concatenate([yx, yx + hw], -1).astype(np.float32)
+    return boxes, rng.rand(*lead, n).astype(np.float32), rng.rand(*lead, n) > 0.1
+
+
+@pytest.mark.parametrize("lead,n,thresh,n_out", [
+    ((), 64, 0.7, 64), ((), 1000, 0.7, 300), ((1,), 12000, 0.7, 2000),
+    ((80,), 300, 0.3, 100), ((2, 3), 129, 0.5, 7)])
+def test_nms_kernel_equals_the_plain_path(cuda, lead, n, thresh, n_out):
+    """``nms_padded`` through the kernel on the card and through the Jacobi
+    loop on the CPU: the same (indices, valid), and one launch a call."""
+    boxes, scores, valid = _nms_case(lead, n, n)
+    out = {}
+    for dev in ("cuda", "cpu"):
+        before = nms_cuda.nms_greedy.launches
+        out[dev] = [x.cpu() for x in nms_padded(
+            *(torch.as_tensor(x, device=dev) for x in (boxes, scores)),
+            thresh, n_out, torch.as_tensor(valid, device=dev))]
+        assert nms_cuda.nms_greedy.launches - before == (dev == "cuda")
+    assert out["cpu"][1].any()
+    for got, want in zip(out["cuda"], out["cpu"]):
+        assert torch.equal(got, want)
+
+
+def test_nms_kernel_walk_equals_its_transcription(cuda):
+    """The kernel's keep mask equals ``nms_keep_bitmask_plain`` on every box,
+    the stop at the ``n_out``-th kept box included; pairs exactly at the
+    threshold (IoU 0.5 of a 10×10 box and its 10×5 half) do not suppress."""
+    rng = np.random.RandomState(1)
+    base = rng.uniform(0, 300, (400, 2)).astype(np.float32).round()
+    full = np.concatenate([base, base + 10.0], -1)
+    half = np.concatenate([base, base + np.array([10.0, 5.0], np.float32)], -1)
+    boxes = torch.as_tensor(np.concatenate([full, half])[None])
+    valid = torch.as_tensor(rng.rand(1, 800) > 0.05)
+    for n_out in (800, 150):
+        want = nms_cuda.nms_keep_bitmask_plain(boxes, valid, 0.5, n_out)
+        got = nms_cuda.nms_greedy(boxes.cuda(), valid.cuda(), 0.5, n_out).cpu()
+        assert torch.equal(got, want), n_out
+    assert int(want.sum()) == 150
+
+
+def _chain_cfg():
+    return cfg_lib._rep(
+        cfg_lib.fpn_mask(), model=dict(n_fg_class=3),
+        proposals=dict(n_train_pre_nms=256, n_train_post_nms=64),
+        sampler=dict(n_sample=32),
+        train=dict(batch_size=2, image_size=(128, 128)))
+
+
+def test_chain_of_four_equals_four_eager_steps(cuda):
+    """``make_train_step(chain=4)``'s first call (an eager step, the
+    capture, three replays) and a second (four replays) against eight eager
+    steps from a copy of the state, under deterministic algorithms: equal
+    in every bit, metrics stacked (4,), the generator alike."""
+    torch.backends.cudnn.allow_tf32 = False
+    cfg = _chain_cfg()
+    data = SyntheticDetectionData(cfg)
+    raw = [data.batch(i) for i in range(8)]
+    stacked = [type(raw[0])(*(None if x[0] is None else np.stack(x)
+                              for x in zip(*raw[i:i + 4]))) for i in (0, 4)]
+    torch.backends.cudnn.deterministic = True
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    try:
+        eager, graphed = (create_train_state(cfg, MaskRCNN(cfg, seed=0), 1)
+                          for _ in range(2))
+        step, chained = make_train_step(cfg), make_train_step(cfg, chain=4)
+        rows = [step(eager, b) for b in raw]
+        metrics = [chained(graphed, b) for b in stacked]
+    finally:
+        torch.backends.cudnn.deterministic = False
+        torch.use_deterministic_algorithms(False)
+    assert graphed.step == eager.step == 8
+    for name in rows[0]:
+        got = torch.cat([m[name] for m in metrics])
+        assert got.shape == (8,)
+        assert torch.equal(got, torch.stack([r[name] for r in rows])), name
+    for (name, a), b in zip(eager.model.state_dict().items(),
+                            graphed.model.state_dict().values()):
+        assert torch.equal(a, b), name
+    assert torch.equal(eager.generator.get_state(), graphed.generator.get_state())
+
+
+def test_chain_counters_count_replays(cuda):
+    """A replayed graph launches what its capture recorded: each chain of
+    four adds B2 2, B1 1 and NMS 2 a step, the capture none of its own."""
+    torch.backends.cudnn.allow_tf32 = False
+    cfg = _chain_cfg()
+    data = SyntheticDetectionData(cfg)
+    raw = [data.batch(i) for i in range(4)]
+    stacked = type(raw[0])(*(None if x[0] is None else np.stack(x)
+                             for x in zip(*raw)))
+    state = create_train_state(cfg, MaskRCNN(cfg, seed=0), 1)
+    chained = make_train_step(cfg, chain=4)
+    for _ in range(2):  # the first call captures, the second only replays
+        for kernel in step_mod.KERNELS:
+            kernel.launches = 0
+        chained(state, stacked)
+        assert [k.launches for k in step_mod.KERNELS] == [8, 4, 8]

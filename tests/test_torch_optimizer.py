@@ -7,9 +7,11 @@ package's ``make_optimizer`` over three steps with an LR decay, on the same
 parameters and gradients (numpy, seeded). The stored bf16 buffer must be
 bit-equal to optax's after every step; the parameters agree within two
 float32 roundings of their size (``p − lr·new`` is rounded once in each, in
-another association). With the float32 buffer (``torch.optim.SGD``) the
-buffer agrees within one rounding.
+another association). With the float32 buffer (the same
+:class:`MomentumSGD`) the buffer agrees within one rounding.
 """
+
+import copy
 
 import numpy as np
 import pytest
@@ -93,7 +95,7 @@ def test_bf16_buffer_is_bit_equal_to_optax():
 
 def test_float32_buffer_matches_optax():
     opt, (j_params, j_bufs), (t_params, t_bufs) = _run(None)
-    assert type(opt) is torch.optim.SGD
+    assert type(opt) is MomentumSGD and opt.momentum_dtype == torch.float32
     for step in range(len(j_bufs)):
         for want, got in zip(j_bufs[step], t_bufs[step]):
             assert got.dtype == torch.float32
@@ -106,4 +108,39 @@ def test_float32_buffer_matches_optax():
 
 def test_momentum_dtype_float32_is_the_plain_sgd():
     opt = make_optimizer(_cfg(tcfg, "float32"), torch.nn.Linear(2, 2))
-    assert type(opt) is torch.optim.SGD
+    assert type(opt) is MomentumSGD and opt.momentum_dtype == torch.float32
+
+
+def test_a_torch_optim_sgd_state_loads_and_steps_alike():
+    """Checkpoints written while the float32 buffer was ``torch.optim.SGD``'s
+    hold that optimizer's state: it loads into :class:`MomentumSGD` and the
+    next step agrees with SGD's own within one rounding of the buffer and
+    two of the parameters."""
+    rng = np.random.RandomState(1)
+    params = [rng.randn(*s).astype(np.float32) * 0.05 for s in SHAPES]
+    grads = [[rng.randn(*s).astype(np.float32) for s in SHAPES] for _ in range(3)]
+    cfg = _cfg(tcfg, None)
+    old = torch.nn.ParameterList([torch.nn.Parameter(torch.from_numpy(p.copy()))
+                                  for p in params])
+    sgd = torch.optim.SGD(old, lr=cfg.train.lr, momentum=cfg.train.momentum,
+                          weight_decay=cfg.train.weight_decay)
+    for g in grads[:2]:
+        for p, x in zip(old, g):
+            p.grad = torch.from_numpy(x)
+        sgd.step()
+    new = torch.nn.ParameterList([torch.nn.Parameter(p.detach().clone())
+                                  for p in old])
+    opt = make_optimizer(cfg, new)
+    opt.load_state_dict(copy.deepcopy(sgd.state_dict()))  # as from a file
+    for module in (old, new):
+        for p, x in zip(module, grads[2]):
+            p.grad = torch.from_numpy(x)
+    sgd.step()
+    opt.step()
+    for a, b in zip(old, new):
+        tol = 2 * EPS * float(a.detach().abs().max())
+        assert float((a - b).abs().max()) <= tol
+        buf_a = sgd.state[a]["momentum_buffer"]
+        buf_b = opt.state[b]["momentum_buffer"]
+        assert buf_b.dtype == torch.float32
+        assert float((buf_a - buf_b).abs().max()) <= EPS * float(buf_a.abs().max())

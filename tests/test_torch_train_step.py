@@ -266,7 +266,7 @@ def test_lr_schedule_and_optimizer_settings():
     assert (group["momentum"], group["weight_decay"], group["dampening"],
             group["nesterov"]) == (0.9, 5e-4, 0, False)
     assert len(group["params"]) == 2  # biases decay too
-    assert isinstance(opt, torch.optim.SGD)
+    assert isinstance(opt, MomentumSGD) and opt.momentum_dtype == torch.float32
     # a bf16 buffer is the port's own step, with the same settings
     opt16 = make_optimizer(_cfg(tcfg, train=dict(momentum_dtype="bfloat16")), model)
     assert isinstance(opt16, MomentumSGD) and opt16.momentum_dtype == torch.bfloat16
