@@ -37,7 +37,8 @@ Phases, in order; any failure exits non-zero before the result is printed:
    three counted steps on synthetic batches through ``make_train_step``
    (12000/2000 proposals, 256 sampled ROIs per image); the launch counts
    are read around the three steps (forward kernel 2 per step, region
-   scatter 1 per step), every loss term must be finite and every parameter,
+   scatter 1 per step, NMS 1 per step: both images' proposals in one
+   call), every loss term must be finite and every parameter,
    frozen-BN scales included, must have moved;
 6. one train step from the same weights, batch and sampler draws on the card
    and on the CPU (plain versions), at full width on a 256×320 canvas with
@@ -143,7 +144,7 @@ Phases, in order; any failure exits non-zero before the result is printed:
    replays, against four eager steps from a copy of the same state: under
    deterministic algorithms equal in every bit (losses, parameters,
    buffers, momentum, the sampler generator); launch counts with the
-   replays (``fpn_mask``: B2 8, B1 4, NMS 8); eager and graphed steps timed
+   replays (``fpn_mask``: B2 8, B1 4, NMS 4); eager and graphed steps timed
    in turns; one ``fpn_mask`` eager step under
    ``torch.cuda.set_sync_debug_mode("error")``;
 23. ``chain-cli``: ``cli.train`` at its default K on the card (``fpn_mask``
@@ -160,13 +161,17 @@ Phases, in order; any failure exits non-zero before the result is printed:
    ``torch.profiler`` lists the device kernels of one region-scatter call in
    each dtype pair with their device times. The NMS kernel is held against
    its plain version (the Jacobi loop) on request 0's two calls (the RPN's
-   6000 boxes, per-class NMS over 80 classes × 300 proposals) and the warm-up step's
-   two (12000 boxes an image): equal ``(indices, valid)``, timed beside the
-   bound of the pairs these inputs need. The launches of the evaluations
-   and CLIs of phases 10, 11 and 17 and of phases 18-23 (each DP rank's own
-   counts) are counted in (``launches_by_path``); every phase that predicts
-   or trains checks NMS's count too (once an image in the RPN, once an
-   image in predict's per-class NMS). With ``--against``, the
+   6000 boxes, per-class NMS over 80 classes × 300 proposals), the warm-up
+   step's one (two images of 12000 boxes), the first of its images alone
+   (P=1) and the RPN's call of an ``fpn_mask`` 800×1024 b8 batch (P=8, the
+   JAX bench's train batch): keep masks equal up to the ``n_out``-th kept
+   box, so equal ``(indices, valid)``, timed beside the bound of the pairs
+   these inputs need, the mask pass and the walk also timed apart, with
+   the walk's steps and microseconds a step. The launches of the
+   evaluations and CLIs of phases 10, 11 and 17 and of phases 18-23 (each
+   DP rank's own counts) are counted in (``launches_by_path``); every phase
+   that predicts or trains checks NMS's count too (once a batch in the RPN,
+   once a batch in predict's per-class NMS). With ``--against``, the
    ROIAlign forward source of another checkout (same C interface) is built too and timed on the same
    inputs in the order other, this, this, other.
 
@@ -202,6 +207,7 @@ from maskrcnn_tpu_torch.bench import (
     predict_config,
     spread_class_scores,
     time_requests,
+    time_train_proposals,
     time_train_steps,
 )
 from maskrcnn_tpu_torch import config as cfg_lib
@@ -807,9 +813,9 @@ def pool_counts(launches: dict) -> dict:
 
 
 def nms_launches(launches: dict, want: int | None, tag: str):
-    """NMS runs once per image in the RPN and once per image in predict's
-    per-class NMS: fail unless the count is ``want`` (or, when None, at
-    least one)."""
+    """NMS runs once per (micro-)batch in the RPN, all its images in one
+    call, and once per batch in predict's per-class NMS: fail unless the
+    count is ``want`` (or, when None, at least one)."""
     got = launches[NMS.name]
     if (got != want) if want is not None else got < 1:
         fail(f"[{tag}] nms_greedy launched {got} times, expected "
@@ -1011,7 +1017,7 @@ def phase_train(n_steps: int, seed: int, settings=None, preset: str = "fpn_mask"
     fwd, bwd = Capture(ROI_ALIGN, per_step), Capture(SCATTER, scatters)
     d_regions = roi_align_ops._d_regions
     products = Capture(d_regions, 2 if scatters else 0)
-    nms_capture = Capture(NMS, batch)
+    nms_capture = Capture(NMS, 1)
     roi_align_ops.roi_align_fwd, roi_align_ops.region_scatter = fwd, bwd
     roi_align_ops._d_regions, nms_ops.nms_greedy = products, nms_capture
     try:
@@ -1030,7 +1036,7 @@ def phase_train(n_steps: int, seed: int, settings=None, preset: str = "fpn_mask"
     times, metrics, peak = time_train_steps(step, state, batches[1:], warmup=0)
     launches = read_launches()
     print(f"[{tag}] launches over {n_steps} steps: {launches}")
-    nms_launches(launches, batch * n_steps, tag)
+    nms_launches(launches, n_steps, tag)
     if pool_counts(launches) != {"roi_align_fwd": per_step * n_steps,
                                  "region_scatter": scatters * n_steps}:
         fail(f"expected {per_step} forward launches and {scatters} region "
@@ -1969,7 +1975,7 @@ def phase_dp_gloo(seed: int, preset: str, hw, batch: int, tag: str) -> dict:
         print(f"[{tag}] rank {r}: " + ", ".join(
             f"{k} {v:.6f}" for k, v in out["metrics"].items())
             + f"; launches {out['launches']}")
-        nms_launches(out["launches"], batch // 2, f"{tag} rank {r}")
+        nms_launches(out["launches"], 1, f"{tag} rank {r}")
         if pool_counts(out["launches"]) != {"roi_align_fwd": per_step,
                                             "region_scatter": scatters}:
             fail(f"[{tag}] rank {r} launched {out['launches']}, expected "
@@ -2197,7 +2203,8 @@ def phase_chain(seed: int, preset: str, hw, batch: int, tag: str) -> dict:
     the losses of each step, the parameters, buffers and momentum after
     them, and the sampler generator. Launch counters around the chained
     call (replays included): per step B2 and B1 as the step's pool gives
-    them, NMS once per image. Then, with the default algorithms, fresh
+    them, NMS once a step (the batch in one call). Then, with the default
+    algorithms, fresh
     states time steps in turns: CHAIN_K eager steps, a chain, a chain,
     CHAIN_K eager steps (CUDA events, after a warm-up chain each); and for
     ``fpn_mask`` one eager step with its batch already on the card runs
@@ -2225,7 +2232,7 @@ def phase_chain(seed: int, preset: str, hw, batch: int, tag: str) -> dict:
         first_s = time.perf_counter() - t0
         launches = read_launches()
     want = {ROI_ALIGN.name: per_step * CHAIN_K, SCATTER.name: scatters * CHAIN_K,
-            NMS.name: batch * CHAIN_K}
+            NMS.name: CHAIN_K}
     print(f"[{tag}] {preset} {hw[0]}x{hw[1]} b{batch}: chain={CHAIN_K}'s first "
           f"call (an eager step, the capture, {CHAIN_K - 1} replays) in "
           f"{first_s:.2f} s; launches {launches}")
@@ -2292,7 +2299,7 @@ def phase_chain_cli(seed: int) -> dict:
     algorithms (with the default ones eight steps part by 3e-3 in a loss,
     and the resumed run's step 8 by 8e-3): the logged losses equal the K=1
     run's bit for bit, and the resumed run's step 8 the uninterrupted
-    run's; launches, replays included, B2 2, B1 1 and NMS 2 a step."""
+    run's; launches, replays included, B2 2, B1 1 and NMS 1 a step."""
     tmp = Path(tempfile.mkdtemp(prefix="chip_smoke_chain_cli_"))
     common = ["--preset", "fpn_mask", "--image-size", "256x320",
               "--batch-size", "2", "--iterations", "8", "--snapshot-every", "4",
@@ -2324,7 +2331,7 @@ def phase_chain_cli(seed: int) -> dict:
         shutil.rmtree(tmp, ignore_errors=True)
     print(f"[chain-cli] fpn_mask 256x320 b2, 8 steps at the default K: "
           f"{said}; launches {launches}; {time.perf_counter() - t0:.1f} s")
-    want = {n: {ROI_ALIGN.name: 2 * k, SCATTER.name: k, NMS.name: 2 * k}
+    want = {n: {ROI_ALIGN.name: 2 * k, SCATTER.name: k, NMS.name: k}
             for n, k in (("a", 8), ("resumed", 4), ("k1", 8))}
     if launches != want:
         fail(f"[chain-cli] launches {launches}, expected {want}")
@@ -2344,50 +2351,106 @@ def phase_chain_cli(seed: int) -> dict:
     return {k: sum(v[k] for v in launches.values()) for k in read_launches()}
 
 
-def nms_entry(paths: dict) -> dict:
+def nms_b8_call(seed: int) -> tuple:
+    """The RPN's NMS call of an ``fpn_mask`` 800×1024 b8 batch at the train
+    budgets (the JAX bench's train batch): eight problems of 12000 boxes
+    from the float32 model's own RPN outputs (``bench.time_train_proposals``,
+    one run, the call captured)."""
+    cfg = predict_config("fpn_mask", 8, 800, 1024)
+    model = MaskRCNN(cfg, seed=seed)
+    capture = Capture(NMS, 1)
+    nms_ops.nms_greedy = capture
+    try:
+        took = time_train_proposals(
+            cfg, model, SyntheticDetectionData(cfg, seed=seed).batch(0), runs=1)
+    finally:
+        nms_ops.nms_greedy = NMS
+    print(f"[kernels] fpn_mask 800x1024 b8 proposals at 12000/2000: "
+          f"{took['proposals_ms']:.3f} ms (one run, the first), valid per "
+          f"image {took['proposals_valid_per_image']}")
+    del model
+    return capture.calls[0]
+
+
+def nms_call(args, label: str, plain: bool = True) -> dict:
+    """One NMS call: its keep mask held to the plain version's (the Jacobi
+    loop, problem by problem) up to each ``n_out``-th kept box, so
+    ``nms_padded``'s ``(indices, valid)`` are equal; timed whole, and as its
+    mask pass and its walk apart, beside the plain version (when ``plain``)
+    and the bound of the work these inputs need (each box compared with
+    the kept boxes before it, up to the ``n_out``-th kept; the boxes,
+    validity and keep mask moved once), with the dense count beside it
+    (every pair of the upper triangle; the mask's bytes); the walk's steps
+    (the most any problem walks: they walk at once) and microseconds a
+    step."""
+    boxes_s, valid_s, thresh, n_out = args
+    got = NMS(*args)
+    want = torch.cat([nms_cuda.nms_keep_plain(b[None], v[None], thresh, n_out)
+                      for b, v in zip(boxes_s, valid_s)])
+    if not torch.equal(kept_prefix(got, n_out), kept_prefix(want, n_out)):
+        fail(f"nms_greedy on the {label} call {tuple(valid_s.shape)} differs "
+             "from its plain version")
+    mask_pass, walk = NMS.parts(*args)
+    mask_pass()
+    if not torch.equal(walk(), got):
+        fail(f"nms_greedy on the {label} call: the walk launched alone differs")
+    work = nms_cuda.nms_work(want, n_out)
+    out = {"shape": list(valid_s.shape), "n_out": n_out,
+           "kept": int(kept_prefix(want, n_out).sum()),
+           "ms": time_ms(lambda: NMS(*args)), "mask_ms": time_ms(mask_pass),
+           "walk_ms": time_ms(walk), "walk_steps": work["max_steps"],
+           "plain_ms": (time_ms(lambda: nms_cuda.nms_keep_plain(*args), runs=7,
+                                calls=3) if plain else None),
+           "bytes_ms": 1e3 * work["bytes"] / HBM_BYTES_PER_S,
+           "ops_ms": 1e3 * work["flops"] / F32_FLOPS,
+           "dense_ops_ms": 1e3 * work["dense_flops"] / F32_FLOPS,
+           "mask_bytes_ms": 1e3 * work["mask_bytes"] / HBM_BYTES_PER_S,
+           "pairs": work["pairs"]}
+    out["walk_us_per_step"] = 1e3 * out["walk_ms"] / max(work["max_steps"], 1)
+    out["bound_ms"] = max(out["bytes_ms"], out["ops_ms"])
+    plain_ms = "not timed" if out["plain_ms"] is None else f"{out['plain_ms']:.4f} ms"
+    print(f"[kernels] nms_greedy {label} call {tuple(valid_s.shape)} (threshold "
+          f"{thresh}, n_out {n_out}, {out['kept']} kept): {out['ms']:.4f} ms "
+          f"(mask pass {out['mask_ms']:.4f}, walk {out['walk_ms']:.4f}: "
+          f"{work['max_steps']} steps, {out['walk_us_per_step']:.3f} µs a step; "
+          f"steps by problem {work['steps']}), plain {plain_ms}, bound bytes "
+          f"{out['bytes_ms']:.5f} / operations {out['ops_ms']:.5f} ms "
+          f"({work['pairs']} pairs; dense: {out['dense_ops_ms']:.4f} ms of "
+          f"operations, the mask's bytes {out['mask_bytes_ms']:.4f} ms); keep "
+          f"mask equal to the plain version's up to the n_out-th kept box")
+    return out
+
+
+def nms_entry(paths: dict, b8_call: tuple) -> dict:
     """The NMS kernel on the inputs the f32 request and train step gave it
-    (request 0's two calls, the warm-up step's two): keep masks equal to its
-    plain version's up to the ``n_out``-th kept box, so ``nms_padded``'s
-    ``(indices, valid)`` are equal; timed beside the
-    plain version and the bound of the work these inputs need (each box
-    compared with the kept boxes before it, up to the ``n_out``-th kept;
-    the boxes, validity and keep mask moved once), with the dense count
-    beside it (every pair of the upper triangle; the mask's bytes)."""
-    out = dict(ms=0.0, plain_ms=0.0, max_abs_err=0.0)
-    bounds = dict(bytes_ms=0.0, ops_ms=0.0, dense_ops_ms=0.0, mask_ms=0.0)
+    (request 0's two calls, the warm-up step's one call of both images) and
+    on the first image of that step alone (P=1) and a b8 batch's call
+    (P=8), each held and timed by :func:`nms_call`. The entry's ``ms``,
+    ``plain_ms`` and bound sum the request's and the step's calls, as the
+    paths run them; ``calls`` lists every call's numbers."""
+    calls = {}
     for path in ("predict", "train"):
-        for args in NMS_CALLS[path]:
-            boxes_s, valid_s, thresh, n_out = args
-            got, want = NMS(*args), nms_cuda.nms_keep_plain(*args)
-            if not torch.equal(kept_prefix(got, n_out), kept_prefix(want, n_out)):
-                fail(f"nms_greedy on the {path} path's {tuple(valid_s.shape)} "
-                     "differs from its plain version")
-            ms = time_ms(lambda: NMS(*args))
-            plain_ms = time_ms(lambda: nms_cuda.nms_keep_plain(*args), runs=7, calls=3)
-            work = nms_cuda.nms_work(want, n_out)
-            b = {"bytes_ms": 1e3 * work["bytes"] / HBM_BYTES_PER_S,
-                 "ops_ms": 1e3 * work["flops"] / F32_FLOPS,
-                 "dense_ops_ms": 1e3 * work["dense_flops"] / F32_FLOPS,
-                 "mask_ms": 1e3 * work["mask_bytes"] / HBM_BYTES_PER_S}
-            print(f"[kernels] nms_greedy {path}-path call "
-                  f"{tuple(valid_s.shape)} (threshold {thresh}, n_out {n_out}, "
-                  f"{int(want.sum())} kept): {ms:.4f} ms, plain {plain_ms:.4f} ms, "
-                  f"bound bytes {b['bytes_ms']:.5f} / operations "
-                  f"{b['ops_ms']:.5f} ms ({work['pairs']} pairs; dense: "
-                  f"{b['dense_ops_ms']:.4f} ms of operations, the mask's "
-                  f"bytes {b['mask_ms']:.4f} ms); (indices, valid) equal to "
-                  "the plain version's")
-            out["ms"] += ms
-            out["plain_ms"] += plain_ms
-            for key in bounds:
-                bounds[key] += b[key]
-    out["bound_ms"] = max(bounds["bytes_ms"], bounds["ops_ms"])
-    out["bound_by"] = "bytes" if bounds["bytes_ms"] >= bounds["ops_ms"] else "operations"
-    out["bound_dense_ms"] = max(bounds["dense_ops_ms"], bounds["mask_ms"])
+        for i, args in enumerate(NMS_CALLS[path]):
+            calls[f"{path}_{i}"] = nms_call(args, f"{path}-path")
+    boxes_s, valid_s, thresh, n_out = NMS_CALLS["train"][0]
+    calls["train_p1"] = nms_call((boxes_s[:1].contiguous(), valid_s[:1].contiguous(),
+                                  thresh, n_out), "train-path first image", False)
+    calls["fpn_mask_b8"] = nms_call(b8_call, "fpn_mask b8 train", False)
+    on_paths = [v for k, v in calls.items() if k.startswith(("predict_", "train_"))
+                and k != "train_p1"]
+    out = {key: sum(v[key] for v in on_paths)
+           for key in ("ms", "plain_ms", "mask_ms", "walk_ms")}
+    bytes_ms = sum(v["bytes_ms"] for v in on_paths)
+    ops_ms = sum(v["ops_ms"] for v in on_paths)
+    out["max_abs_err"] = 0.0  # keep masks are compared for equality
+    out["bound_ms"] = max(bytes_ms, ops_ms)
+    out["bound_by"] = "bytes" if bytes_ms >= ops_ms else "operations"
+    out["bound_dense_ms"] = max(sum(v["dense_ops_ms"] for v in on_paths),
+                                sum(v["mask_bytes_ms"] for v in on_paths))
     n = {path: v[0].get(NMS.name, 0) for path, v in paths.items()}
     return {"name": NMS.name, "route": "cuda", "source": KERNELS[2][2],
             "replaces": KERNELS[2][3], "launches": sum(n.values()),
-            "launches_by_path": n, **out,
+            "launches_by_path": n, **out, "calls": calls,
             "library_ms": None}  # torchvision, which has an NMS, is absent
 
 
@@ -2536,7 +2599,7 @@ def time_against(other_source: str, calls_by_path: dict):
                   f"(other's error {err:.2e})")
 
 
-def phase_kernels_line(paths: dict):
+def phase_kernels_line(paths: dict, nms_b8: tuple):
     """Time each kernel on the inputs the main paths gave it (one request's
     or one step's calls, summed), beside its plain version and its bound.
     ``paths`` maps each path to (launches, ROIAlign calls, region-scatter
@@ -2580,7 +2643,7 @@ def phase_kernels_line(paths: dict):
          **{f"{path}_path": {**v, "library_ms": lib[path],
                              "d_regs_matmul_ms": products[path]}
             for path, v in bwd.items() if path != first_bwd}},
-        nms_entry(paths),
+        nms_entry(paths, nms_b8),
     ]
 
 
@@ -2667,7 +2730,7 @@ def main(argv=None):
         paths[tag.replace("-", "_")] = (phase_chain(args.seed, preset, hw, batch, tag),
                                         [], [], [])
     paths["chain_cli"] = (phase_chain_cli(args.seed), [], [], [])
-    entries = phase_kernels_line(paths)
+    entries = phase_kernels_line(paths, nms_b8_call(args.seed))
     for entry in entries:
         entry["coco_launches_by_shape"] = {k: v[entry["name"]]
                                            for k, v in by_shape.items()}

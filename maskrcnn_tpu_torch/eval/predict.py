@@ -5,7 +5,7 @@ Pass 1 runs backbone, RPN, proposals and the box branch, decodes boxes
 per class (loc · std + mean → loc2bbox → clip; one class-agnostic loc, or
 each class's own for the Res5 head), and
 keeps every (ROI, class) pair above ``score_thresh`` for an exact per-class
-greedy NMS (all classes of an image in one batched call). A global
+greedy NMS (every class of every image of the batch in one call). A global
 top-``max_detections`` by score merges the classes. Pass 2 pools the
 refined boxes — at the pass-1 ROI's level under ``mask_levels="pass1"`` —
 and runs the class-gathered mask branch, or the keypoint branch, whose
@@ -151,16 +151,16 @@ def make_predict_fn(cfg: Config, model: MaskRCNN, image_size=None):
             props.levels.reshape(b * r))
         probs = torch.softmax(roi_scores, dim=-1).reshape(b, r, -1)
         locs = locs.reshape(b, r, -1)
-        dets = []
-        for i in range(b):
-            cls_boxes, cls_scores, cls_valid = decode_boxes(
-                cfg, props.rois[i], locs[i], probs[i], props.valid[i], img_hw[i])
-            keep_idx, keep_valid = nms_padded(
-                cls_boxes, cls_scores, cfg.eval.nms_thresh, n_keep_pc, cls_valid)
-            dets.append(merge_top(cls_boxes, cls_scores, props.levels[i],
-                                  keep_idx, keep_valid, d))
+        cls_boxes, cls_scores, cls_valid = (torch.stack(t) for t in zip(*(
+            decode_boxes(cfg, props.rois[i], locs[i], probs[i],
+                         props.valid[i], img_hw[i]) for i in range(b))))
+        # every image's per-class NMS in one call: (B, n_fg) problems
+        keep_idx, keep_valid = nms_padded(
+            cls_boxes, cls_scores, cfg.eval.nms_thresh, n_keep_pc, cls_valid)
         det_boxes, det_scores, det_labels, det_valid, det_levels = (
-            torch.stack(t) for t in zip(*dets))
+            torch.stack(t) for t in zip(*(
+                merge_top(cls_boxes[i], cls_scores[i], props.levels[i],
+                          keep_idx[i], keep_valid[i], d) for i in range(b))))
         masks, heatmaps = predict_masks(cfg, model, roi_feats, det_boxes,
                                         det_labels, det_levels)
         return Detections(det_boxes, det_scores, det_labels, det_valid, masks,

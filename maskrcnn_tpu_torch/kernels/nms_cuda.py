@@ -17,9 +17,12 @@ is unique and equals sequential greedy NMS:
   the CPU);
 - :func:`nms_keep_bitmask_plain`, the kernel's algorithm in plain torch:
   the suppression matrix packed into 64-bit words, walked 64 boxes at a
-  time, stopping at the ``n_out``-th kept box;
-- the kernel (``csrc/nms_greedy.cu``): what bounds it and what its design
-  does about that are in the source's header.
+  time (each step's 64 bits decided in full, then trimmed at the
+  ``n_out``-th kept box, where the walk stops);
+- the kernel (``csrc/nms_greedy.cu``): a mask pass and a walk, one launch
+  each for all P problems, the walk one block (one SM) a problem; what
+  bounds it and what its design does about that are in the source's
+  header.
 
 The kernel stops at the ``n_out``-th kept box, so boxes after it may stay
 unkept where the full fixpoint keeps them; compacted into ``n_out`` slots
@@ -42,8 +45,24 @@ from maskrcnn_tpu_torch.ops.boxes import box_iou
 WORD = 64  # boxes a mask word, and a step of the walk
 IOU_OPS = 14  # float32 operations of one IoU and its comparison
 
-_ARGTYPES = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 3 + [ctypes.c_float,
-                                                          ctypes.c_void_p]
+_PTR, _INT, _FLOAT = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+_FUNCTIONS = {
+    # boxes, valid, mask, keep, P, N, n_out, thresh, stream
+    "nms_greedy": [_PTR] * 4 + [_INT] * 3 + [_FLOAT, _PTR],
+    # boxes, mask, P, N, thresh, stream
+    "nms_mask": [_PTR] * 2 + [_INT] * 2 + [_FLOAT, _PTR],
+    # mask, valid, keep, P, N, n_out, stream
+    "nms_walk": [_PTR] * 3 + [_INT] * 3 + [_PTR],
+}
+
+
+def mask_words(p: int, n: int) -> int:
+    """64-bit words of the kernel's mask scratch: each problem's upper
+    triangle of 64×64 tiles, packed (``W = ceil(N/64)`` tile rows, row
+    ``t`` holding 64 rows of its words ``t`` onwards, then the next tile
+    row's 64 diagonal words; tile row 0's diagonal words before it)."""
+    words = -(-n // WORD)
+    return p * WORD * (1 + words + words * (words + 1) // 2)
 
 
 def suppression(boxes_s, iou_thresh: float) -> torch.Tensor:
@@ -85,11 +104,14 @@ def nms_keep_bitmask_plain(boxes_s, valid_s, iou_thresh: float,
                            n_out: int) -> torch.Tensor:
     """The kernel's mask and walk in plain torch and Python ints → (P, N)
     bool: the suppression words of :func:`pack_words`; each problem's
-    removed bits start at its invalid boxes and the padding past N; 64
-    boxes at a time the diagonal word is walked bit by bit (a box not yet
-    removed is kept and ORs its row's diagonal word in), then the kept rows'
-    later words are ORed into the removed bits; the walk stops at the
-    ``n_out``-th kept box, leaving the boxes after it unkept."""
+    removed bits start at its invalid boxes and the padding past N. Step
+    ``s`` decides boxes ``64s .. 64s+63``: the diagonal word is walked bit by
+    bit (a box not yet removed is kept and ORs its row's diagonal word in),
+    the step's kept bits are trimmed to the lowest ``n_out − count`` once
+    they reach the ``n_out``-th kept box, where the walk stops and leaves
+    the boxes after it unkept; otherwise the kept rows' later words are ORed
+    into the removed bits (the kernel ORs word ``s+1`` first and the rest
+    beside the next step's decision: the same ORs)."""
     p, n = valid_s.shape
     words = -(-n // WORD)
     full = (1 << WORD) - 1
@@ -102,24 +124,26 @@ def nms_keep_bitmask_plain(boxes_s, valid_s, iou_thresh: float,
             if i >= n or not valid[q][i]:
                 removed[i // WORD] |= 1 << (i % WORD)
         count = 0
-        for wb in range(words):
-            cur, kept = removed[wb], 0
+        for s in range(words):
+            cur = removed[s]
             for c in range(WORD):
-                if count >= n_out:
-                    break
                 if not (cur >> c) & 1:
-                    kept |= 1 << c
-                    cur |= rows[wb * WORD + c][wb] & full
-                    count += 1
+                    cur |= rows[s * WORD + c][s] & full
+            kept = ~cur & full
+            stop = count + bin(kept).count("1") >= n_out
+            if stop:  # the lowest n_out - count kept bits
+                for _ in range(bin(kept).count("1") - max(n_out - count, 0)):
+                    kept &= ~(1 << (kept.bit_length() - 1))
+            count += bin(kept).count("1")
             for c in range(WORD):
                 if (kept >> c) & 1:
-                    keep[q, wb * WORD + c] = True
-            if count >= n_out:
+                    keep[q, s * WORD + c] = True
+            if stop:
                 break
-            for w in range(wb + 1, words):
+            for w in range(s + 1, words):
                 for c in range(WORD):
                     if (kept >> c) & 1:
-                        removed[w] |= rows[wb * WORD + c][w] & full
+                        removed[w] |= rows[s * WORD + c][w] & full
     return keep.to(valid_s.device)
 
 
@@ -131,7 +155,10 @@ def nms_work(keep: torch.Tensor, n_out: int) -> dict:
     ``flops`` and ``dense_flops``: ``IOU_OPS`` a pair; ``bytes``: the boxes
     (16 bytes) and validity (1) read once, the keep mask (1) written once;
     ``mask_bytes``: the kernel's 64-bit suppression words over the upper
-    triangle's tiles."""
+    triangle's tiles; ``steps``: each problem's 64-box steps of the walk (to
+    the one that holds its ``n_out``-th kept box, or all ``ceil(N/64)``),
+    and ``max_steps``, the most of them: the problems walk at once, one SM
+    each, so the walk takes about ``max_steps`` steps' time."""
     p, n = keep.shape
     kept = torch.cumsum(keep.long(), dim=-1)
     before = kept - keep.long()
@@ -142,23 +169,25 @@ def nms_work(keep: torch.Tensor, n_out: int) -> dict:
     visited = torch.arange(n, device=keep.device)[None, :] < stop[:, None]
     pairs = int((before * visited).sum())
     words = -(-n // WORD)
-    tiles = words * (words + 1) // 2
+    steps = (-(-stop // WORD)).clamp(min=1).tolist()
     return {"pairs": pairs, "flops": IOU_OPS * pairs,
             "dense_pairs": p * n * (n - 1) // 2,
             "dense_flops": IOU_OPS * p * n * (n - 1) // 2,
             "bytes": p * n * (16 + 1 + 1),
-            "mask_bytes": p * tiles * WORD * 8}
+            "mask_bytes": p * WORD * 8 * words * (words + 1) // 2,
+            "steps": steps, "max_steps": max(steps, default=0)}
 
 
 class NmsGreedy:
     """Callable wrapper with a launch counter (``launches``), which rises by
-    one per call that launches the kernel and nowhere else."""
+    one per call that launches the kernel (its mask pass and its walk, or
+    one of them alone through :meth:`parts`) and nowhere else."""
 
     name = "nms_greedy"
 
     def __init__(self):
         self.launches = 0
-        self.library = CudaLibrary("nms_greedy.cu", {"nms_greedy": _ARGTYPES})
+        self.library = CudaLibrary("nms_greedy.cu", _FUNCTIONS)
 
     def __call__(self, boxes_s, valid_s, iou_thresh: float,
                  n_out: int) -> torch.Tensor:
@@ -174,16 +203,49 @@ class NmsGreedy:
         keep = torch.empty((p, n), dtype=torch.bool, device=dev)
         if p == 0 or n == 0:
             return keep
-        mask = torch.empty((p, n, -(-n // WORD)), dtype=torch.int64, device=dev)
+        mask = torch.empty((mask_words(p, n),), dtype=torch.int64, device=dev)
         with torch.cuda.device(dev):
-            err = self.library.load().nms_greedy(
+            self._raise(self.library.load().nms_greedy(
                 boxes_s.data_ptr(), valid_s.data_ptr(), mask.data_ptr(),
                 keep.data_ptr(), p, n, n_out, iou_thresh,
-                torch.cuda.current_stream(dev).cuda_stream)
-        if err != 0:
-            raise RuntimeError(f"nms_greedy launch failed: cudaError_t {err}")
+                torch.cuda.current_stream(dev).cuda_stream))
         self.launches += 1
         return keep
+
+    def parts(self, boxes_s, valid_s, iou_thresh: float, n_out: int):
+        """The mask pass and the walk as two callables on one scratch, for
+        timing them apart on CUDA tensors: ``mask_pass()`` fills the mask,
+        ``walk()`` returns the keep mask from it; each adds one launch."""
+        self._check(boxes_s, valid_s)
+        if boxes_s.device.type != "cuda" or not valid_s.numel():
+            raise ValueError("parts: needs non-empty CUDA tensors")
+        p, n = valid_s.shape
+        dev = boxes_s.device
+        keep = torch.empty((p, n), dtype=torch.bool, device=dev)
+        mask = torch.empty((mask_words(p, n),), dtype=torch.int64, device=dev)
+        lib = self.library.load()
+
+        def mask_pass():
+            with torch.cuda.device(dev):
+                self._raise(lib.nms_mask(
+                    boxes_s.data_ptr(), mask.data_ptr(), p, n, iou_thresh,
+                    torch.cuda.current_stream(dev).cuda_stream))
+            self.launches += 1
+
+        def walk():
+            with torch.cuda.device(dev):
+                self._raise(lib.nms_walk(
+                    mask.data_ptr(), valid_s.data_ptr(), keep.data_ptr(), p, n,
+                    n_out, torch.cuda.current_stream(dev).cuda_stream))
+            self.launches += 1
+            return keep
+
+        return mask_pass, walk
+
+    @staticmethod
+    def _raise(err: int):
+        if err != 0:
+            raise RuntimeError(f"nms_greedy launch failed: cudaError_t {err}")
 
     @staticmethod
     def _check(boxes_s, valid_s):
@@ -195,9 +257,10 @@ class NmsGreedy:
         if valid_s.dtype != torch.bool or tuple(valid_s.shape) != (p, n):
             raise ValueError(f"valid_s must be (P, N) = {(p, n)} bool, got "
                              f"{valid_s.dtype} {tuple(valid_s.shape)}")
-        if p > 65535 or -(-n // WORD) > 65535 or p * n >= 2**31:
+        if p > 65535 or -(-n // WORD) > 28000 or p * n >= 2**31:
             raise ValueError("P must be at most 65535, ceil(N/64) at most "
-                             "65535 and P·N below 2^31")
+                             "28000 (the walk's removed bits in shared "
+                             "memory) and P·N below 2^31")
         if valid_s.device != boxes_s.device:
             raise ValueError(f"valid_s is on {valid_s.device}, boxes_s on "
                              f"{boxes_s.device}")

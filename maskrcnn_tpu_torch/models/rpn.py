@@ -73,23 +73,24 @@ def generate_proposals(locs, scores, anchors, scale, img_hw, n_pre: int,
                        n_post: int, nms_thresh: float = 0.7,
                        min_size: float = 16.0, n_levels: int = 5) -> Proposals:
     """Decode → clip → min-size filter → top-``n_pre`` → NMS → ``n_post``
-    slots, per image. ``img_hw`` (B, 2) is the true content size inside the
-    padded canvas; ``scale`` (B,) the resize scale."""
+    slots, over the batch written out (JAX ``vmap``s ``per_image``): each
+    image clips to its own ``img_hw`` (B, 2), the true content size inside
+    the padded canvas, and filters by its own ``scale`` (B,), the resize
+    scale; NMS is one call of B problems."""
     fg = torch.softmax(scores, dim=-1)[..., 1]  # (B, A)
-    out = []
-    for i in range(locs.shape[0]):
-        boxes = clip_boxes(loc2bbox(anchors, locs[i]), (img_hw[i, 0], img_hw[i, 1]))
-        ms = min_size * scale[i]
-        ok = ((boxes[:, 2] - boxes[:, 0]) >= ms) & ((boxes[:, 3] - boxes[:, 1]) >= ms)
-        masked = torch.where(ok, fg[i], torch.full_like(fg[i], -float("inf")))
-        top_scores, top_idx = top_k_stable(masked, min(n_pre, boxes.shape[0]))
-        top_boxes = boxes[top_idx]
-        idx, valid = nms_padded(top_boxes, top_scores, nms_thresh, n_post,
-                                torch.isfinite(top_scores))
-        idx = idx.long()
-        rois = top_boxes[idx]
-        roi_scores = torch.where(valid, top_scores[idx], torch.zeros_like(rois[:, 0]))
-        levels = torch.where(valid, map_rois_to_fpn_levels(rois, 0, n_levels - 1),
-                             torch.zeros_like(valid, dtype=torch.int32))
-        out.append((rois, levels, valid, roi_scores))
-    return Proposals(*(torch.stack(t) for t in zip(*out)))
+    boxes = clip_boxes(loc2bbox(anchors, locs),
+                       (img_hw[:, 0, None], img_hw[:, 1, None]))  # (B, A, 4)
+    ms = min_size * scale[:, None]
+    ok = ((boxes[..., 2] - boxes[..., 0]) >= ms) & ((boxes[..., 3] - boxes[..., 1]) >= ms)
+    masked = torch.where(ok, fg, torch.full_like(fg, -float("inf")))
+    top_scores, top_idx = top_k_stable(masked, min(n_pre, boxes.shape[1]))
+    top_boxes = torch.gather(boxes, 1, top_idx[..., None].expand(-1, -1, 4))
+    idx, valid = nms_padded(top_boxes, top_scores, nms_thresh, n_post,
+                            torch.isfinite(top_scores))
+    idx = idx.long()
+    rois = torch.gather(top_boxes, 1, idx[..., None].expand(-1, -1, 4))
+    roi_scores = torch.where(valid, torch.gather(top_scores, 1, idx),
+                             torch.zeros_like(rois[..., 0]))
+    levels = torch.where(valid, map_rois_to_fpn_levels(rois, 0, n_levels - 1),
+                         torch.zeros_like(valid, dtype=torch.int32))
+    return Proposals(rois, levels, valid, roi_scores)

@@ -9,13 +9,15 @@ earlier to later boxes in score order), so its fixpoint is unique and
 equals sequential greedy NMS; any exact method returns the same indices.
 On the card it is the hand-written kernel of
 :mod:`maskrcnn_tpu_torch.kernels.nms_cuda` (a 64-bit suppression mask over
-the upper triangle, 18 MB an image at the train step's 12000 boxes, then a
-walk 64 boxes at a time); on the CPU its plain version, the Jacobi loop.
-The JAX package streams chunks above 4096 boxes to bound TPU memory; the
-indices are the same.
+the upper triangle, 9 MB an image at the train step's 12000 boxes, then a
+walk 64 boxes at a time, one SM a problem, every problem of the call at
+once); on the CPU its plain version, the Jacobi loop. The JAX package
+streams chunks above 4096 boxes to bound TPU memory; the indices are the
+same.
 
-Leading dimensions batch independent problems: per-class NMS in predict
-runs (n_fg, R) scores in one call.
+Leading dimensions batch independent problems, one kernel launch a call:
+the RPN runs a batch's (B, n_pre) scores in one call, predict's per-class
+NMS a batch's (B, n_fg, R).
 """
 
 from __future__ import annotations

@@ -769,6 +769,111 @@ def test_nms_kernel_walk_equals_its_transcription(cuda):
     assert int(want.sum()) == 150
 
 
+def _kernel_case(p, n, seed):
+    """P problems of N score-sorted boxes, denser problem by problem (so
+    the walks stop at different steps), random invalid slots and each odd
+    problem's last tenth invalid."""
+    rng = np.random.RandomState(seed)
+    side = np.linspace(2000.0, 300.0, p)[:, None, None]
+    yx = rng.uniform(0, 1, (p, n, 2)) * side
+    hw = rng.uniform(8, 120, (p, n, 2))
+    boxes = np.concatenate([yx, yx + hw], -1).astype(np.float32)
+    valid = rng.rand(p, n) > 0.05
+    valid[1::2, n - n // 10:] = False
+    return torch.as_tensor(boxes), torch.as_tensor(valid)
+
+
+def _plain_prefix(boxes, valid, thresh, n_out):
+    """The Jacobi spec problem by problem on the card (a P=8 × 12000 call
+    at once would hold ~30 GB of pair matrices), up to each n_out-th kept."""
+    keep = torch.cat([nms_cuda.nms_keep_plain(b[None], v[None], thresh, n_out)
+                      for b, v in zip(boxes.cuda(), valid.cuda())])
+    return keep & (torch.cumsum(keep.long(), -1) <= n_out)
+
+
+@pytest.mark.parametrize("p", [1, 2, 8])
+@pytest.mark.parametrize("n", [64, 300, 6000, 12000])
+def test_nms_kernel_equals_the_jacobi_spec_by_batch_and_size(cuda, p, n):
+    """One launch of P problems against the Jacobi spec, with ``n_out``
+    stopping the walk at its first step, in its middle, and never; each
+    call's keep mask is empty past its ``n_out``-th kept box."""
+    boxes, valid = _kernel_case(p, n, 7 * p + n)
+    for n_out in (1, max(1, n // 6), n):
+        want = _plain_prefix(boxes, valid, 0.7, n_out)
+        before = nms_cuda.nms_greedy.launches
+        got = nms_cuda.nms_greedy(boxes.cuda(), valid.cuda(), 0.7, n_out)
+        assert nms_cuda.nms_greedy.launches - before == 1
+        assert torch.equal(got, want), (p, n, n_out)
+    steps = nms_cuda.nms_work(want, n)["steps"]
+    assert len(steps) == p and max(steps) == -(-n // 64)
+
+
+@pytest.mark.parametrize("n", [15000, 20000])
+def test_nms_kernel_reads_unstaged_tiles_in_place(cuda, n):
+    """Above 14336 boxes two buffers of the first tiles' rows do not fit in
+    shared memory: those tiles (11 of 235 at 15000, 90 of 313 at 20000)
+    are read from global memory, the rest staged; the keep masks still
+    equal the Jacobi spec's."""
+    boxes, valid = _kernel_case(2, n, n)
+    for n_out in (n // 5, n):
+        got = nms_cuda.nms_greedy(boxes.cuda(), valid.cuda(), 0.7, n_out)
+        assert torch.equal(got, _plain_prefix(boxes, valid, 0.7, n_out)), n_out
+
+
+def test_nms_parts_equal_the_whole_call(cuda):
+    """The mask pass and the walk launched apart (as ``chip_smoke.py``
+    times them) give the whole call's keep mask, one launch each."""
+    boxes, valid = _kernel_case(2, 3000, 5)
+    want = nms_cuda.nms_greedy(boxes.cuda(), valid.cuda(), 0.7, 500)
+    before = nms_cuda.nms_greedy.launches
+    mask_pass, walk = nms_cuda.nms_greedy.parts(boxes.cuda(), valid.cuda(), 0.7, 500)
+    mask_pass()
+    assert torch.equal(walk(), want)
+    assert nms_cuda.nms_greedy.launches - before == 2
+
+
+def test_batched_proposals_capture_equals_eager(cuda):
+    """``generate_proposals`` over a b2 batch at the train budgets
+    (12000/2000 of a 256×320 canvas's 20460 anchors), captured into a CUDA
+    graph and replayed, equals its eager run in every bit; the capture
+    launches NMS once for both images."""
+    from maskrcnn_tpu_torch.models.maskrcnn import backbone_geometry, pyramid_shapes
+    from maskrcnn_tpu_torch.models.rpn import anchors_for, generate_proposals
+
+    cfg = cfg_lib.fpn_mask()
+    shapes = pyramid_shapes(cfg, (256, 320))
+    anchors = torch.as_tensor(anchors_for(cfg, shapes, backbone_geometry(cfg)[0]),
+                              device=cuda)
+    rng = np.random.RandomState(3)
+    a = anchors.shape[0]
+    args = [torch.as_tensor(x, device=cuda) for x in (
+        (rng.normal(size=(2, a, 4)) * 0.2).astype(np.float32),
+        rng.normal(size=(2, a, 2)).astype(np.float32),
+        np.array([1.0, 0.6], np.float32),
+        np.array([[256, 320], [180, 300]], np.float32))]
+    kw = dict(n_pre=12000, n_post=2000, nms_thresh=0.7, min_size=16.0, n_levels=5)
+
+    def run():
+        return generate_proposals(args[0], args[1], anchors, args[2], args[3], **kw)
+
+    eager = run()
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        run()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    before = nms_cuda.nms_greedy.launches
+    with torch.cuda.graph(graph):
+        captured = run()
+    assert nms_cuda.nms_greedy.launches - before == 1
+    graph.replay()
+    torch.cuda.synchronize()
+    assert eager.valid.sum() > 1000
+    for name, g, w in zip(eager._fields, captured, eager):
+        assert torch.equal(g, w), name
+
+
 def _chain_cfg():
     return cfg_lib._rep(
         cfg_lib.fpn_mask(), model=dict(n_fg_class=3),
@@ -812,7 +917,8 @@ def test_chain_of_four_equals_four_eager_steps(cuda):
 
 def test_chain_counters_count_replays(cuda):
     """A replayed graph launches what its capture recorded: each chain of
-    four adds B2 2, B1 1 and NMS 2 a step, the capture none of its own."""
+    four adds B2 2, B1 1 and NMS 1 a step (both images' proposals in one
+    call), the capture none of its own."""
     torch.backends.cudnn.allow_tf32 = False
     cfg = _chain_cfg()
     data = SyntheticDetectionData(cfg)
@@ -825,4 +931,4 @@ def test_chain_counters_count_replays(cuda):
         for kernel in step_mod.KERNELS:
             kernel.launches = 0
         chained(state, stacked)
-        assert [k.launches for k in step_mod.KERNELS] == [8, 4, 8]
+        assert [k.launches for k in step_mod.KERNELS] == [8, 4, 4]
