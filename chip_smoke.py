@@ -32,7 +32,21 @@ Phases, in order; any failure exits non-zero before the result is printed:
    chosen load that fills every detection slot) serves synthetic requests
    through ``make_predict_fn``; every kernel's launch count is read around
    that run; one request is served again on the CPU (plain versions) and
-   must agree;
+   must agree. Then ``predict-graph``, here and in phases 7, 12, 16 and 17
+   (every preset served with 8 requests): one eager request under
+   ``torch.cuda.set_sync_debug_mode("error")``; a fresh predict function's
+   first call (eager), second (the capture of a CUDA graph of the request)
+   and replays; the launches of a replay equal an eager request's (B2 2 on
+   the FPN presets, none under the single-level gather form; NMS 2); the
+   same requests served by ``predict.eager`` and by replays in turns, equal
+   in every bit (``valid``, ``labels``, boxes, scores, masks or heatmaps),
+   with p50/p90 of both, the capture's seconds and its pool's reserved
+   GiB; two replayed results held at once, each its own request's; the
+   class-score weight replaced by another tensor (a new capture, equal to
+   eager) and then scaled in place (no capture, the replay follows it).
+   Phases that hook or patch the path (the kernel inputs kept from request
+   0, ``passing_pairs``, ``Proposals``) call ``predict.eager``: a replay
+   runs no Python;
 5. the train path: the same model at batch 2 takes one warm-up step and
    three counted steps on synthetic batches through ``make_train_step``
    (12000/2000 proposals, 256 sampled ROIs per image); the launch counts
@@ -206,6 +220,7 @@ from maskrcnn_tpu_torch.bench import (
     percentile,
     predict_config,
     spread_class_scores,
+    time_in_turns,
     time_requests,
     time_train_proposals,
     time_train_steps,
@@ -878,12 +893,12 @@ def phase_predict(n_requests: int, seed: int, settings=None,
           f"model and {n_requests} requests ready in "
           f"{time.perf_counter() - t0:.1f} s")
 
-    # warm-up request 0, keeping the kernel inputs it makes (2 per request)
+    # request 0 eagerly, keeping the kernel inputs it makes (2 per request)
     capture = Capture(ROI_ALIGN, per_request)
     nms_capture = Capture(NMS, 2)
     roi_align_ops.roi_align_fwd, nms_ops.nms_greedy = capture, nms_capture
     try:
-        det0 = predict(*requests[0])
+        det0 = predict.eager(*requests[0])
         torch.cuda.synchronize()
     finally:
         roi_align_ops.roi_align_fwd, nms_ops.nms_greedy = ROI_ALIGN, NMS
@@ -909,12 +924,15 @@ def phase_predict(n_requests: int, seed: int, settings=None,
         if not keypoint and det.masks.shape != (1, d, size, size):
             fail(f"mask shape {tuple(det.masks.shape)}")
     print(f"[{tag}] request p50 {percentile(times, 0.5):.3f} ms, max "
-          f"{max(times):.3f} ms (CUDA events, {n_requests} requests after 1 "
-          f"warm-up); valid detections per request "
+          f"{max(times):.3f} ms (CUDA events, {n_requests} requests: the "
+          f"first eager, the second captures, replays after); valid "
+          f"detections per request "
           f"{[int(d.valid.sum()) for d in dets]} of {cfg.eval.max_detections}")
     pairs = passing_pairs(cfg, model, predict, requests)
     print(f"[{tag}] (ROI, class) pairs above score_thresh "
           f"{cfg.eval.score_thresh} per request (untimed rerun): {pairs}")
+    if n_requests > 1:
+        phase_predict_graph(cfg, model, requests, f"{tag}-graph", per_request)
     if settings is not None:
         return launches, capture.calls
 
@@ -926,9 +944,9 @@ def phase_predict(n_requests: int, seed: int, settings=None,
     try:
         ref = make_predict_fn(cfg, cpu_model)(*requests[0])
         if single:
-            det0 = predict(*requests[0])
+            det0 = predict.eager(*requests[0])
             spy.give(spy.calls[0])
-            det0 = predict(*requests[0])
+            det0 = predict.eager(*requests[0])
     finally:
         spy.restore()
     print(f"[{tag}] request 0 on the CPU in {time.perf_counter() - t0:.1f} s, "
@@ -957,6 +975,88 @@ def phase_predict(n_requests: int, seed: int, settings=None,
     if keypoint:
         keypoints_card_vs_cpu(det0, ref, tag)
     return launches, capture.calls
+
+
+def same_bits(got, want) -> list[str]:
+    """The fields of two ``Detections`` that differ in any bit."""
+    return [name for name, g, w in zip(got._fields, got, want)
+            if (g is None) != (w is None) or (g is not None and not torch.equal(g, w))]
+
+
+def phase_predict_graph(cfg, model, requests, tag: str, per_request: int):
+    """``predict-graph`` (the module's docstring, phase 4) on a served
+    model and its requests; the model's weights are as before on return."""
+    predict = make_predict_fn(cfg, model)
+    inputs = [torch.as_tensor(x, device=model.device) for x in requests[0]]
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        predict.eager(*inputs)
+    except RuntimeError as err:
+        fail(f"[{tag}] an eager request waits for the host: {err}")
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    predict(*requests[0])
+    predict(*requests[1])
+    graph, = predict.graphs.values()
+    if (graph.captures, graph.replays) != (1, 1):
+        fail(f"[{tag}] after two calls {graph.captures} captures and "
+             f"{graph.replays} replays, expected 1 and 1")
+    want = {ROI_ALIGN.name: per_request, SCATTER.name: 0, NMS.name: 2}
+    for name, fn in (("graphed", predict), ("eager", predict.eager)):
+        torch.cuda.synchronize()
+        reset_launches()
+        fn(*requests[2])
+        torch.cuda.synchronize()
+        if read_launches() != want:
+            fail(f"[{tag}] a {name} request launched {read_launches()}, "
+                 f"expected {want}")
+    turns = time_in_turns({"graphed": predict, "eager": predict.eager},
+                          requests, warmup=0)
+    for i, (got, ref) in enumerate(zip(turns["graphed"][1], turns["eager"][1])):
+        if same_bits(got, ref):
+            fail(f"[{tag}] request {i}: replayed {same_bits(got, ref)} differ "
+                 "from eager")
+    (g_ms, _), (e_ms, _) = turns["graphed"], turns["eager"]
+    print(f"[{tag}] {len(requests)} requests replayed and eager in turns, equal "
+          f"in every bit; launches a request {want} both ways; p50 / p90 ms "
+          f"graphed {percentile(g_ms, 0.5):.3f} / {percentile(g_ms, 0.9):.3f}, "
+          f"eager {percentile(e_ms, 0.5):.3f} / {percentile(e_ms, 0.9):.3f} "
+          f"(CUDA events, enqueue to last kernel); capture {graph.capture_s:.3f} s, "
+          f"its pool reserved {graph.reserved_bytes / 2**30:.3f} GiB; "
+          f"{card_name_and_power_limit()}")
+
+    first, second = predict(*requests[0]), predict(*requests[1])
+    ref = predict.eager(*requests[0])
+    if same_bits(first, ref) or torch.equal(first.scores, second.scores):
+        fail(f"[{tag}] two replayed results held at once: request 0's differs "
+             f"from eager in {same_bits(first, ref)}, or equals request 1's")
+    layer = class_score_layer(model)
+    weight = layer.weight
+
+    def held(change: str):
+        det = predict(*requests[0])
+        differ = same_bits(det, predict.eager(*requests[0]))
+        if differ or graph.captures != 2:
+            fail(f"[{tag}] the class-score weight {change}: {differ} differ "
+                 f"from eager, {graph.captures} captures (expected 2)")
+        return det
+
+    try:
+        layer.weight = torch.nn.Parameter(weight.detach() * 1.25)
+        replaced = held("replaced")
+        with torch.no_grad():
+            layer.weight.mul_(0.8)
+        scaled = held("scaled in place")
+    finally:
+        layer.weight = weight
+    if torch.equal(replaced.scores, ref.scores) or torch.equal(
+            scaled.scores, replaced.scores):
+        fail(f"[{tag}] the replays did not follow the weights")
+    print(f"[{tag}] two replayed results held at once, each its own "
+          f"request's; the class-score weight replaced: captured again, equal "
+          f"to eager; scaled in place: not captured again, the replay follows "
+          f"it ({graph.captures} captures, {graph.replays} replays)")
 
 
 def keypoints_card_vs_cpu(det, ref, tag: str):
@@ -1343,11 +1443,18 @@ def phase_eval(n_batches: int, seed: int):
                ("eval_instance_segmentation_voc", "evaluate_coco")}
     for name, timed in scorers.items():
         setattr(evaluator, name, timed)
-    try:
+    cache = {}  # the bucket's predict: its first evaluation warms up
+    try:  # and captures, the timed one replays
+        t0 = time.perf_counter()
+        evaluator.evaluate_dataset(cfg, model, iter(data), n_batches, None, cache)
         torch.cuda.synchronize()
+        first_secs = time.perf_counter() - t0
+        for timed in scorers.values():
+            timed.seconds = 0.0
         reset_launches()
         t0 = time.perf_counter()
-        report = evaluator.evaluate_dataset(cfg, model, iter(data), n_batches)
+        report = evaluator.evaluate_dataset(cfg, model, iter(data), n_batches,
+                                            None, cache)
         torch.cuda.synchronize()
         secs = time.perf_counter() - t0
         launches = read_launches()
@@ -1363,7 +1470,9 @@ def phase_eval(n_batches: int, seed: int):
     scoring = sum(t.seconds for t in scorers.values())
     print(f"[eval] report over {n_batches} images: " + ", ".join(
         f"{k} {v:.4f}" for k, v in report.items() if not k.startswith("ap/")))
-    print(f"[eval] {secs:.3f} s for {n_batches} images: {secs / n_batches:.3f} s "
+    print(f"[eval] {secs:.3f} s for {n_batches} images (replays; the first "
+          f"evaluation, warm-up and capture, {first_secs:.3f} s): "
+          f"{secs / n_batches:.3f} s "
           f"an image, of which the numpy scorers {scoring / n_batches:.3f} s "
           f"(VOC {scorers['eval_instance_segmentation_voc'].seconds:.3f} s, "
           f"COCO {scorers['evaluate_coco'].seconds:.3f} s in all); "
@@ -1509,16 +1618,20 @@ class ShapeLaunches:
     ``make_predict_fn``): every function it builds adds its calls' kernel
     launches to ``counts["<kind> HxW"]``. With ``capture`` set to an image
     size, the first call at that size keeps copies of its kernel inputs (2
-    ROIAlign forwards, 1 region scatter, 2 products) in ``calls``."""
+    ROIAlign forwards, 1 region scatter, 2 products) in ``calls``. The
+    request graphs of every predict function it builds are kept by image
+    size in ``graphs``."""
 
     def __init__(self, factory, kind: str, counts: dict, capture=None):
         self.factory, self.kind, self.counts = factory, kind, counts
-        self.capture, self.calls = capture, None
+        self.capture, self.calls, self.graphs = capture, None, {}
 
     def __call__(self, *args, image_size=None, **kwargs):
         fn = self.factory(*args, image_size=image_size, **kwargs)
         hw = tuple(image_size or args[0].train.image_size)
         key = f"{self.kind} {hw[0]}x{hw[1]}"
+        if hasattr(fn, "graphs"):
+            self.graphs.setdefault(key, []).append(fn.graphs)
 
         def counted(*a, **k):
             capturing = hw == self.capture and self.calls is None
@@ -1594,6 +1707,12 @@ def coco_run(tmp: Path, coco_root: str, preset: str, iterations: int,
          export_mod.paste_masks) = saved
     with open(tmp / "results.json") as f:
         results = json.load(f)
+    for key, made in predicts.graphs.items():
+        print(f"[coco] {key}: " + "; ".join(
+            f"b{sig[0][0]} {sig[1]} {g.captures} captures {g.replays} replays, "
+            + (f"pool {g.reserved_bytes / 2**30:.3f} GiB" if g.captures
+               else "eager only (its first request)")
+            for graphs in made for sig, g in graphs.items()))
     return rows, report, results, pasted, steps.calls
 
 
@@ -1889,7 +2008,8 @@ def phase_viewer(weight: str, frame: str):
         viewer.infer_frame(img)
         times.append(time.perf_counter() - t0)
     print(f"[dk-viewer] {Path(out).name} {size} for a {depth_hw} frame; "
-          f"fps(EMA) over {N_VIEWER_FRAMES} frames {viewer.fps_ema:.2f}; "
+          f"fps(EMA) over {N_VIEWER_FRAMES} frames {viewer.fps_ema:.2f} "
+          f"(graphed: replays from the second frame); "
           f"median frame {1e3 * statistics.median(times):.3f} ms over "
           f"{N_VIEWER_FRAMES} more (host clock, {card_name_and_power_limit()}); "
           f"launches {launches}")

@@ -44,12 +44,16 @@ and ``--profile N`` traces N/K chains.
 ``--mode predict`` (batch 1 unless given) serves synthetic requests (seeded
 random weights with the class scores spread as :func:`spread_class_scores`
 says, TF32 off) through :func:`maskrcnn_tpu_torch.eval.predict.make_predict_fn` and prints
-ONE JSON line: p50/p90 milliseconds per request, timed with CUDA events
-after warm-up, with the card's name and power limit and the (ROI, class)
-pairs that clear the score threshold in each of the 4 distinct requests
-(the load of per-class NMS); with ``--profile N``
-also the device's busy share and the kernels that take its time, traced
-over N more requests. Without a GPU it exits non-zero.
+ONE JSON line: p50/p90 milliseconds per request, replays of the request's
+CUDA graph timed with CUDA events after warm-up (the first warms up, the
+second captures) from enqueue, the input copy included, to the last
+kernel's end; under ``eager`` the same of ``predict.eager`` on the same
+requests, timed in turns with the graphed ones; under ``graph`` the
+capture's seconds and its memory pool's reserved GiB; the card's name and
+power limit and the (ROI, class) pairs that clear the score threshold in
+each of the 4 distinct requests (the load of per-class NMS); with
+``--profile N`` also the device's busy share and the kernels that take its
+time, traced over N more graphed requests. Without a GPU it exits non-zero.
 """
 
 from __future__ import annotations
@@ -74,7 +78,8 @@ from maskrcnn_tpu_torch.models.maskrcnn import (
 )
 from maskrcnn_tpu_torch.models.rpn import anchors_for, generate_proposals
 from maskrcnn_tpu_torch.train.state import create_train_state
-from maskrcnn_tpu_torch.train.step import KERNELS, make_train_step, stack_batches
+from maskrcnn_tpu_torch.kernels import KERNELS
+from maskrcnn_tpu_torch.train.step import make_train_step, stack_batches
 from maskrcnn_tpu_torch.utils.device import card_name_and_power_limit
 
 # requests served before timing: lazy CUDA and cuDNN set-up, allocator growth
@@ -138,9 +143,10 @@ def class_score_layer(model):
 
 
 def passing_pairs(cfg: cfg_lib.Config, model, predict, requests) -> list[int]:
-    """Serve ``requests`` again, untimed, and count for each the (ROI, class)
-    pairs of pass 1 whose class score clears ``score_thresh``, over all
-    proposal slots: the load that per-class NMS and the merge see."""
+    """Serve ``requests`` again through ``predict.eager``, untimed, and
+    count for each the (ROI, class) pairs of pass 1 whose class score
+    clears ``score_thresh``, over all proposal slots: the load that
+    per-class NMS and the merge see."""
     counts = []
 
     def count(module, inputs, logits):
@@ -150,7 +156,7 @@ def passing_pairs(cfg: cfg_lib.Config, model, predict, requests) -> list[int]:
     handle = class_score_layer(model).register_forward_hook(count)
     try:
         for req in requests:
-            predict(*req)
+            predict.eager(*req)  # a hook never runs in a graph's replay
     finally:
         handle.remove()
     return counts
@@ -159,20 +165,33 @@ def passing_pairs(cfg: cfg_lib.Config, model, predict, requests) -> list[int]:
 def time_requests(predict, requests, warmup: int = 3):
     """Serve ``requests`` (after ``warmup`` unmeasured ones) → (ms per
     request from CUDA events, Detections per request). Each request's time
-    runs from its enqueue to the end of its last kernel."""
-    for req in requests[:warmup]:
-        predict(*req)
+    runs from its enqueue, the copy of its inputs included, to the end of
+    its last kernel."""
+    return time_in_turns({"": predict}, requests, warmup)[""]
+
+
+def time_in_turns(predicts: dict, requests, warmup: int = 3) -> dict:
+    """Each of ``predicts`` (name → function) serves every request in
+    turns, the order reversed from one request to the next, after
+    ``warmup`` unmeasured requests each → name → (ms per request,
+    Detections per request), timed as :func:`time_requests` times."""
+    for predict in predicts.values():
+        for req in requests[:warmup]:
+            predict(*req)
     torch.cuda.synchronize()
-    times, dets = [], []
-    for req in requests[warmup:]:
-        start = torch.cuda.Event(enable_timing=True)
-        end = torch.cuda.Event(enable_timing=True)
-        start.record()
-        dets.append(predict(*req))
-        end.record()
-        end.synchronize()
-        times.append(start.elapsed_time(end))
-    return times, dets
+    out = {name: ([], []) for name in predicts}
+    names = list(predicts)
+    for i, req in enumerate(requests[warmup:]):
+        for name in names if i % 2 == 0 else names[::-1]:
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            det = predicts[name](*req)
+            end.record()
+            end.synchronize()
+            out[name][0].append(start.elapsed_time(end))
+            out[name][1].append(det)
+    return out
 
 
 def time_train_steps(step, state, batches, warmup: int = 2):
@@ -234,11 +253,19 @@ def time_train_proposals(cfg: cfg_lib.Config, model, batch, runs: int = 5) -> di
 
 def profile_requests(predict, requests, top: int = 12) -> dict:
     """Trace ``predict(*request)`` over ``requests`` with ``torch.profiler``
-    → the device's busy share of the wall time and the ``top`` kernels by
-    device time per request (a train step is a request here, too)."""
+    → the device's busy share of the wall time, also of the wall time of
+    the same requests served untraced just before (the tracer adds host
+    time to each kernel of a replayed graph), the device kernels a request
+    runs and the ``top`` kernels by device time per request (a train step
+    is a request here, too)."""
     from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for req in requests:
+        predict(*req)
+    torch.cuda.synchronize()
+    plain_ms = (time.perf_counter() - t0) * 1e3
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         for req in requests:
@@ -254,6 +281,11 @@ def profile_requests(predict, requests, top: int = 12) -> dict:
         "wall_ms_per_request": wall_ms / n,
         "device_ms_per_request": busy_ms / n,
         "device_busy_share": busy_ms / wall_ms,
+        # the profiler's own cost grows with a graph's kernels: the same
+        # requests untraced, just before, against the traced device time
+        "wall_ms_per_request_untraced": plain_ms / n,
+        "device_busy_share_untraced": busy_ms / plain_ms,
+        "device_kernels_per_request": sum(e.count for e in kernels) / n,
         "top_kernels_ms_per_request": [
             [e.key[:90], e.self_device_time_total / 1e3 / n, e.count // n]
             for e in kernels[:top]],
@@ -405,15 +437,23 @@ def main(argv=None):
     data = SyntheticRequests(cfg, seed=0)
     n = WARMUP + args.steps
     requests = [tuple(data.batch(i % 4)) for i in range(n + args.profile)]
-    times, dets = time_requests(predict, requests[:n], WARMUP)
+    turns = time_in_turns({"graphed": predict, "eager": predict.eager},
+                          requests[:n], WARMUP)
+    times, dets = turns["graphed"]
+    eager_times = turns["eager"][0]
     profiled = profile_requests(predict, requests[n:]) if args.profile else {}
     pairs = passing_pairs(cfg, model, predict, requests[:4])
+    graph, = predict.graphs.values()
     print(json.dumps({
         "metric": f"predict_p50_ms_{args.preset}_{h}x{w}_b{batch}",
         "value": percentile(times, 0.5),
         "unit": "ms",
         "p90_ms": percentile(times, 0.9),
         "steps": args.steps,
+        "eager": {"p50_ms": percentile(eager_times, 0.5),
+                  "p90_ms": percentile(eager_times, 0.9)},
+        "graph": {"capture_s": graph.capture_s, "captures": graph.captures,
+                  "reserved_gib": graph.reserved_bytes / 2**30},
         "valid_detections_mean": sum(int(d.valid.sum()) for d in dets) / len(dets),
         "passing_pairs_per_request": pairs,
         "settings": settings(cfg),

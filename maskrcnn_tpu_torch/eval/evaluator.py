@@ -26,7 +26,15 @@ from maskrcnn_tpu_torch.eval.predict import make_predict_fn
 
 def predict_for_sizes(cfg: Config, model, predict_cache: dict | None):
     """image size → predict function, one per bucket, kept in
-    ``predict_cache`` across calls (the evaluators' and the exports')."""
+    ``predict_cache`` across calls (the evaluators' and the exports').
+
+    On the card each function keeps one CUDA graph per batch size and
+    image dtype, each in a memory pool of its own: a bucket's first batch
+    runs eagerly, its second captures, the rest replay, also across
+    evaluations (the graphs read the parameters where the optimizer
+    updates them). A shorter last batch is a signature of its own, so
+    within one evaluation it runs eagerly as that signature's first
+    request and captures only if it comes again."""
     cache = {} if predict_cache is None else predict_cache
 
     def predict_for(hw):

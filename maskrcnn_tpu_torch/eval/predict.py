@@ -14,15 +14,29 @@ detections live in ``max_detections`` padded slots with a validity mask.
 With ``model.dtype="bfloat16"`` the convolutions and dense layers compute
 in bf16 and the pools read bf16 features; the RPN outputs, proposals, NMS,
 box decoding, scores and mask logits stay float32, as in the JAX package.
+
+JAX jits the whole request into one program per input shape. On the card
+the port serves a request as one CUDA graph per input signature (batch
+size and image dtype at the function's image size), JAX's compile once per
+shape: the signature's first request runs eagerly (the warm-up), its
+second captures the request into a graph, and every request after that
+replays the graph (:class:`GraphedPredict`). A replay runs only device
+work, so a forward hook or a function patched into a module never runs in
+it: code that hooks or patches the path calls ``predict.eager``, the same
+request without the graph. On the CPU ``predict`` is ``predict.eager``.
 """
 
 from __future__ import annotations
 
+import os
+import time
+import traceback
 from typing import NamedTuple
 
 import torch
 
 from maskrcnn_tpu_torch.config import Config
+from maskrcnn_tpu_torch.kernels import add_launches, launch_counts, take_back_launches
 from maskrcnn_tpu_torch.models.maskrcnn import (
     MaskRCNN,
     backbone_geometry,
@@ -32,6 +46,7 @@ from maskrcnn_tpu_torch.models.rpn import anchors_for, generate_proposals, top_k
 from maskrcnn_tpu_torch.ops.boxes import clip_boxes, loc2bbox
 from maskrcnn_tpu_torch.ops.levels import map_rois_to_fpn_levels
 from maskrcnn_tpu_torch.ops.nms import nms_padded
+from maskrcnn_tpu_torch.utils.device import device_constant
 
 
 class Detections(NamedTuple):
@@ -49,8 +64,10 @@ def decode_boxes(cfg: Config, rois, locs, probs, rvalid, img_hw):
     per class (the Res5 head), probs (R, C+1), rvalid (R,) → (cls_boxes
     (n_fg, R, 4), cls_scores (n_fg, R), cls_valid (n_fg, R))."""
     n_fg = cfg.model.n_fg_class
-    mean = torch.tensor(cfg.sampler.loc_normalize_mean, device=locs.device)
-    std = torch.tensor(cfg.sampler.loc_normalize_std, device=locs.device)
+    mean = device_constant(cfg.sampler.loc_normalize_mean, torch.float32,
+                           locs.device)
+    std = device_constant(cfg.sampler.loc_normalize_std, torch.float32,
+                          locs.device)
     hw = (img_hw[0], img_hw[1])
     if locs.shape[-1] == 4:
         boxes = clip_boxes(loc2bbox(rois, locs * std + mean), hw)
@@ -89,6 +106,14 @@ def merge_top(cls_boxes, cls_scores, roi_levels, keep_idx, keep_valid, d: int):
     return det_boxes, det_scores, det_labels.to(torch.int32), det_valid, det_levels
 
 
+def image_index(b: int, n: int, device) -> torch.Tensor:
+    """(b·n,) int32: each of b images' index n times, as
+    ``repeat_interleave`` gives it, by a broadcast that no PyTorch version
+    turns into a host sync."""
+    return torch.arange(b, dtype=torch.int32, device=device)[:, None].expand(
+        b, n).reshape(b * n)
+
+
 def predict_masks(cfg: Config, model: MaskRCNN, roi_feats, det_boxes,
                   det_labels, det_levels):
     """Pass 2: (B, D) detections → (masks, heatmaps): (B, D, S, S) sigmoid
@@ -102,8 +127,7 @@ def predict_masks(cfg: Config, model: MaskRCNN, roi_feats, det_boxes,
         flat_levels = det_levels.reshape(b * d)
     else:
         flat_levels = map_rois_to_fpn_levels(flat_boxes, 0, len(roi_feats) - 1)
-    flat_bi = torch.arange(b, dtype=torch.int32,
-                           device=det_boxes.device).repeat_interleave(d)
+    flat_bi = image_index(b, d, det_boxes.device)
     if cfg.model.head == "fpn_keypoint":
         heat = model.head_mask(roi_feats, flat_boxes, flat_bi, flat_levels)
         return None, heat.reshape(b, d, *heat.shape[1:])
@@ -117,6 +141,12 @@ def make_predict_fn(cfg: Config, model: MaskRCNN, image_size=None):
 
     images (B, H, W, 3) uint8 or float; img_hw (B, 2) true content size;
     scale (B,) resize scale. Arrays or tensors; moved to the model's device.
+    Every call returns tensors of its own. On the card the second call of
+    a signature captures a CUDA graph and later calls replay it (the
+    module's docstring); ``predict.eager`` serves a request without the
+    graph, ``predict.body`` is the captured part (device tensors in, no
+    host work) and ``predict.graphs`` maps each signature to its
+    :class:`GraphedPredict`.
     """
     h, w = image_size or cfg.train.image_size
     feat_strides, _ = backbone_geometry(cfg)
@@ -129,11 +159,10 @@ def make_predict_fn(cfg: Config, model: MaskRCNN, image_size=None):
     # only the top-d kept boxes of a class can reach the global top-d
     n_keep_pc = min(cfg.proposals.n_test_post_nms, d)
 
-    @torch.inference_mode()
-    def predict(images, img_hw, scale) -> Detections:
-        images = torch.as_tensor(images, device=dev)
-        img_hw = torch.as_tensor(img_hw, dtype=torch.float32, device=dev)
-        scale = torch.as_tensor(scale, dtype=torch.float32, device=dev)
+    def body(images, img_hw, scale) -> Detections:
+        """One request on the model's device: images (B, H, W, 3), img_hw
+        (B, 2) and scale (B,) float32. It reads its inputs only through
+        these tensors and never waits for the device."""
         b = images.shape[0]
         features, rpn_locs, rpn_scores = model(images)
         roi_feats = model.roi_features(features)
@@ -145,7 +174,7 @@ def make_predict_fn(cfg: Config, model: MaskRCNN, image_size=None):
             min_size=cfg.proposals.min_size, n_levels=n_levels,
         )
         r = props.rois.shape[1]
-        batch_idx = torch.arange(b, dtype=torch.int32, device=dev).repeat_interleave(r)
+        batch_idx = image_index(b, r, dev)
         locs, roi_scores = model.head_box(
             roi_feats, props.rois.reshape(b * r, 4), batch_idx,
             props.levels.reshape(b * r))
@@ -166,4 +195,167 @@ def make_predict_fn(cfg: Config, model: MaskRCNN, image_size=None):
         return Detections(det_boxes, det_scores, det_labels, det_valid, masks,
                           heatmaps)
 
+    @torch.inference_mode()
+    def eager(images, img_hw, scale) -> Detections:
+        return body(*request_tensors(images, img_hw, scale, dev))
+
+    graphs: dict[tuple, GraphedPredict] = {}
+
+    @torch.inference_mode()
+    def predict(images, img_hw, scale) -> Detections:
+        if dev.type != "cuda":
+            return eager(images, img_hw, scale)
+        inputs = request_tensors(images, img_hw, scale)
+        key = (tuple(inputs[0].shape), inputs[0].dtype)
+        graph = graphs.get(key)
+        if graph is None:
+            graph = graphs[key] = GraphedPredict(body, dev, inputs)
+            return graph.warm_up(inputs)
+        return graph.replay(inputs, model)
+
+    predict.eager, predict.body, predict.graphs = eager, body, graphs
     return predict
+
+
+def request_tensors(images, img_hw, scale, device=None):
+    """A request's arrays or tensors as tensors (img_hw and scale float32),
+    on ``device`` when given, else where they are."""
+    return (torch.as_tensor(images, device=device),
+            torch.as_tensor(img_hw, dtype=torch.float32, device=device),
+            torch.as_tensor(scale, dtype=torch.float32, device=device))
+
+
+class ModelTensors:
+    """Where a model's parameters and buffers live, as a graph captured
+    from it reads them. :meth:`moved` tells whether any of them has moved
+    since: a parameter or buffer replaced by another tensor (or given
+    other storage through ``.data``), or a submodule replaced. It looks up
+    the slots found at construction: walking the module tree again at
+    every request is most of the cost of such a check for a model of a few
+    hundred modules, and the device waits for it."""
+
+    def __init__(self, model):
+        modules = list(model.modules())
+        self.children = [(m._modules, name, child) for m in modules
+                         for name, child in m._modules.items()]
+        self.slots = [(d, name) for m in modules for d in (m._parameters, m._buffers)
+                      for name, t in d.items() if t is not None]
+        self.pointers = self._pointers()
+
+    def _pointers(self) -> tuple:
+        return tuple(d[name].data_ptr() for d, name in self.slots)
+
+    def moved(self) -> bool:
+        try:
+            return (any(d.get(name) is not child for d, name, child in self.children)
+                    or self._pointers() != self.pointers)
+        except (KeyError, AttributeError):  # a tensor deleted or set to None
+            return True
+
+
+class GraphedPredict:
+    """One request signature's predict as a ``torch.cuda.CUDAGraph``.
+
+    ``warm_up(inputs)`` serves the signature's first request eagerly on a
+    side stream: cuBLAS, cuDNN, the kernels' libraries, the allocator and
+    the device constants are set up there before anything is captured.
+    ``capture(model)`` records ``body`` on that stream against static
+    input buffers, in a memory pool of the graph's own (``reserved_bytes``,
+    ``capture_s``). ``replay(inputs, model)`` copies a request into the
+    buffers (a host array through a pinned buffer of the graph's own, so
+    that the copy does not wait for the device), captures first if the
+    model's tensors have moved, replays and returns clones of the outputs,
+    so that no two requests' results share memory; all of it queued on the
+    current stream behind the work before it.
+
+    The launch counters of :data:`maskrcnn_tpu_torch.kernels.KERNELS` rise
+    at capture, when nothing runs; the capture's counts are taken back and
+    added again at every replay. The graph is bound to the tensors of the
+    model it was captured with: an optimizer step or ``load_state_dict``
+    writes into them in place and a replay reads the new values, while a
+    parameter replaced by another tensor needs a new capture
+    (:class:`ModelTensors`). A capture that fails raises naming the
+    operation; nothing falls back to eager.
+    """
+
+    def __init__(self, body, device, inputs):
+        self.body, self.device = body, device
+        self.stream = torch.cuda.Stream(device=device)
+        self.static = tuple(torch.empty(x.shape, dtype=x.dtype, device=device)
+                            for x in inputs)
+        self.pinned = tuple(torch.empty(x.shape, dtype=x.dtype, pin_memory=True)
+                            for x in inputs)
+        self.staged = torch.cuda.Event()  # the last copy out of ``pinned``
+        self.graph = self.outputs = self.tensors = None
+        self.launches = [0] * len(launch_counts())
+        self.captures = self.replays = 0
+        self.capture_s = self.reserved_bytes = None
+
+    def _stage(self, inputs):
+        """Each input into its static buffer on the current stream; a host
+        array goes through ``pinned`` once the last copy out of it ran."""
+        self.staged.synchronize()
+        for static, pinned, x in zip(self.static, self.pinned, inputs):
+            if x.device.type == "cpu":
+                x = pinned.copy_(x)
+            static.copy_(x, non_blocking=True)
+        self.staged.record()
+
+    def warm_up(self, inputs) -> Detections:
+        current = torch.cuda.current_stream(self.device)
+        self.stream.wait_stream(current)
+        with torch.cuda.stream(self.stream):
+            self._stage(inputs)
+            det = self.body(*self.static)
+        current.wait_stream(self.stream)
+        for t in det:
+            if t is not None:  # made on the side stream, read on this one
+                t.record_stream(current)
+        return det
+
+    def capture(self, model):
+        self.graph = self.outputs = None  # the last graph's pool goes first
+        t0 = time.perf_counter()
+        graph = torch.cuda.CUDAGraph()
+        before = launch_counts()
+        self.stream.wait_stream(torch.cuda.current_stream(self.device))
+        try:
+            with torch.cuda.graph(graph, stream=self.stream):
+                reserved = torch.cuda.memory_reserved(self.device)
+                outputs = self.body(*self.static)
+        except RuntimeError as err:
+            take_back_launches(before)
+            raise RuntimeError(
+                "predict: capturing the request into a CUDA graph failed at "
+                f"{_where(err)}: a replay cannot wait for the host or copy "
+                "host data (no .item(), no tensor built from host values; "
+                "constants through utils/device.py:device_constant)") from err
+        self.launches = take_back_launches(before)
+        torch.cuda.current_stream(self.device).wait_stream(self.stream)
+        self.reserved_bytes = torch.cuda.memory_reserved(self.device) - reserved
+        self.graph, self.outputs, self.tensors = graph, outputs, ModelTensors(model)
+        self.captures += 1
+        self.capture_s = time.perf_counter() - t0
+
+    def replay(self, inputs, model) -> Detections:
+        self._stage(inputs)  # the copies run while the host checks the model
+        if self.graph is None or self.tensors.moved():
+            self.capture(model)
+        self.graph.replay()
+        add_launches(self.launches)
+        self.replays += 1
+        return Detections(*(None if t is None else t.clone()
+                            for t in self.outputs))
+
+
+def _where(err: BaseException) -> str:
+    """The first error of ``err``'s chain at its innermost frame outside
+    torch: the operation a capture could not take."""
+    while err.__context__ is not None:
+        err = err.__context__
+    torch_dir = os.path.dirname(torch.__file__)
+    frames = [f for f in traceback.extract_tb(err.__traceback__)
+              if not f.filename.startswith(torch_dir)]
+    f = frames[-1] if frames else None
+    site = f"{f.filename}:{f.lineno} ({f.line})" if f else "?"
+    return f"{site}: {type(err).__name__}: {err}"

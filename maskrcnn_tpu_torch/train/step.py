@@ -57,7 +57,12 @@ import numpy as np
 import torch
 
 from maskrcnn_tpu_torch.config import Config
-from maskrcnn_tpu_torch.kernels import nms_cuda, region_scatter_cuda, roi_align_cuda
+from maskrcnn_tpu_torch.kernels import (  # noqa: F401 (KERNELS: step.KERNELS)
+    KERNELS,
+    add_launches,
+    launch_counts,
+    take_back_launches,
+)
 from maskrcnn_tpu_torch.models.maskrcnn import (
     MaskRCNN,
     backbone_geometry,
@@ -75,12 +80,6 @@ from maskrcnn_tpu_torch.targets.proposal_targets import (
 )
 from maskrcnn_tpu_torch.train import losses as L
 from maskrcnn_tpu_torch.train.state import TrainState, lr_on_device, lr_schedule
-
-# the hand-written kernels a step can launch; a replayed graph launches what
-# its capture recorded, so the chained step adds those to their counters
-KERNELS = (roi_align_cuda.roi_align_fwd, region_scatter_cuda.region_scatter,
-           nms_cuda.nms_greedy)
-
 
 class Batch(NamedTuple):
     """One fixed-shape batch, arrays or tensors. Padded everywhere; the
@@ -398,13 +397,11 @@ class GraphedStep:
         self.batch = _map(torch.clone, batch)
         self.draws = SamplerDraws(*(x.clone() for x in draws))
         self.graph = torch.cuda.CUDAGraph()
-        before = [k.launches for k in KERNELS]
+        before = launch_counts()
         with torch.cuda.graph(self.graph, stream=self.stream):
             self.metrics = body(state, self.batch, self.draws, anchors,
                                 step_count)
-        self.launches = [k.launches - n for k, n in zip(KERNELS, before)]
-        for kernel, n in zip(KERNELS, self.launches):
-            kernel.launches -= n
+        self.launches = take_back_launches(before)
         torch.cuda.current_stream(anchors.device).wait_stream(self.stream)
         self.state_id, self.tensors = id(state), self.fingerprint(state)
 
@@ -427,5 +424,4 @@ class GraphedStep:
         for static, x in zip(self.draws, draws):
             static.copy_(x, non_blocking=True)
         self.graph.replay()
-        for kernel, n in zip(KERNELS, self.launches):
-            kernel.launches += n
+        add_launches(self.launches)

@@ -932,3 +932,146 @@ def test_chain_counters_count_replays(cuda):
             kernel.launches = 0
         chained(state, stacked)
         assert [k.launches for k in step_mod.KERNELS] == [8, 4, 4]
+
+
+def _graph_cfg(preset, dtype="float32", roi_align="auto"):
+    """A request small enough for a test: ``tiny_test`` at its own 128×160,
+    ``fpn_mask`` at 256×320 with 3 classes; b1."""
+    model = dict(dtype=dtype, roi_align=roi_align)
+    if preset == "tiny_test":
+        return cfg_lib._rep(cfg_lib.tiny_test(), model=model,
+                            train=dict(batch_size=1, image_size=(128, 160)))
+    return cfg_lib._rep(
+        cfg_lib.fpn_mask(), model=dict(n_fg_class=3, **model),
+        proposals=dict(n_test_pre_nms=512, n_test_post_nms=64),
+        eval=dict(max_detections=16), train=dict(batch_size=1, image_size=(256, 320)))
+
+
+def _graph_setup(cuda, preset, dtype="float32", roi_align="auto", n=4):
+    """(model with spread class scores, its predict, n seeded requests)."""
+    from maskrcnn_tpu_torch.bench import spread_class_scores
+
+    torch.backends.cudnn.allow_tf32 = False
+    cfg = _graph_cfg(preset, dtype, roi_align)
+    model = spread_class_scores(MaskRCNN(cfg, device=cuda, seed=0))
+    data = SyntheticRequests(cfg)
+    return model, make_predict_fn(cfg, model), [tuple(data.batch(i)) for i in range(n)]
+
+
+def _same(got, want):
+    for name, g, w in zip(got._fields, got, want):
+        assert (g is None) == (w is None), name
+        if g is not None:
+            assert torch.equal(g, w), name
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("preset", ["tiny_test", "fpn_mask"])
+def test_graphed_predict_equals_eager_bit_for_bit(cuda, preset, dtype):
+    """The warm-up, the capture's first replay and later replays each equal
+    ``predict.eager`` on the same request in every bit."""
+    _, predict, requests = _graph_setup(cuda, preset, dtype)
+    for req in requests:
+        det = predict(*req)
+        _same(det, predict.eager(*req))
+    graph, = predict.graphs.values()
+    assert (graph.captures, graph.replays) == (1, len(requests) - 1)
+    assert det.valid.any()
+
+
+def test_first_call_warms_up_second_captures_third_replays(cuda):
+    _, predict, requests = _graph_setup(cuda, "tiny_test")
+    predict(*requests[0])
+    graph, = predict.graphs.values()
+    assert graph.graph is None and (graph.captures, graph.replays) == (0, 0)
+    predict(*requests[1])
+    assert (graph.captures, graph.replays) == (1, 1)
+    assert graph.capture_s > 0 and graph.reserved_bytes > 0
+    captured = graph.graph
+    predict(*requests[2])
+    assert graph.graph is captured and (graph.captures, graph.replays) == (1, 2)
+    # a b2 request is a signature of its own: it warms up, nothing captured
+    images, img_hw, scale = (np.concatenate([a, b]) for a, b in zip(*requests[:2]))
+    predict(images, img_hw, scale)
+    assert len(predict.graphs) == 2 and graph.replays == 2
+
+
+def test_replaced_parameter_recaptures_in_place_update_does_not(cuda):
+    """A parameter replaced by another tensor makes the next call capture
+    again; one updated in place (an optimizer step, ``load_state_dict``)
+    does not, and the replay reads its new values."""
+    from maskrcnn_tpu_torch.bench import class_score_layer
+
+    model, predict, requests = _graph_setup(cuda, "fpn_mask")
+    req = requests[0]
+    predict(*req)
+    before = predict(*req)
+    graph, = predict.graphs.values()
+    layer = class_score_layer(model)
+    layer.weight = torch.nn.Parameter(layer.weight.detach() * 1.5)
+    replaced = predict(*req)
+    assert graph.captures == 2
+    _same(replaced, predict.eager(*req))
+    assert not torch.equal(replaced.scores, before.scores)
+    with torch.no_grad():
+        layer.weight.mul_(0.5)
+    updated = predict(*req)
+    assert graph.captures == 2
+    _same(updated, predict.eager(*req))
+    assert not torch.equal(updated.scores, replaced.scores)
+
+
+@pytest.mark.parametrize("preset,roi_align,want", [
+    ("fpn_mask", "auto", [2, 0, 2]), ("tiny_test", "auto", [0, 0, 2]),
+    ("tiny_test", "pallas", [2, 0, 2])])
+def test_replay_counts_the_launches_of_an_eager_request(cuda, preset, roi_align,
+                                                        want):
+    _, predict, requests = _graph_setup(cuda, preset, roi_align=roi_align, n=2)
+    for req in requests:  # the warm-up and the capture
+        predict(*req)
+    counts = []
+    for fn in (predict, predict.eager):
+        for kernel in step_mod.KERNELS:
+            kernel.launches = 0
+        fn(*requests[0])
+        counts.append([k.launches for k in step_mod.KERNELS])
+    assert counts == [want, want]
+
+
+def test_two_replayed_results_never_alias(cuda):
+    _, predict, requests = _graph_setup(cuda, "tiny_test")
+    for req in requests[:2]:
+        predict(*req)
+    first, second = predict(*requests[0]), predict(*requests[1])
+    _same(first, predict.eager(*requests[0]))
+    for name, a, b in zip(first._fields, first, second):
+        if a is not None:
+            assert a.data_ptr() != b.data_ptr(), name
+    assert not torch.equal(first.scores, second.scores)
+
+
+def test_capture_that_waits_for_the_host_raises(cuda, monkeypatch):
+    """A body that reads a value on the host runs eagerly (the warm-up),
+    but its capture raises naming the operation, every time: nothing falls
+    back to eager."""
+    from maskrcnn_tpu_torch.eval import predict as predict_mod
+
+    merge_top = predict_mod.merge_top
+
+    def waits(cls_boxes, *args):
+        if cls_boxes.sum().item() < 0:  # reads the device's value
+            raise AssertionError
+        return merge_top(cls_boxes, *args)
+
+    monkeypatch.setattr(predict_mod, "merge_top", waits)
+    _, predict, requests = _graph_setup(cuda, "tiny_test")
+    predict(*requests[0])
+    for req in requests[1:3]:
+        with pytest.raises(RuntimeError, match=r"capturing the request into a "
+                           r"CUDA graph failed at \S*test_torch_cuda\.py:\d+ "
+                           r"\(if cls_boxes\.sum\(\)\.item\(\) < 0:"):
+            predict(*req)
+    graph, = predict.graphs.values()
+    assert graph.graph is None and graph.replays == 0
+    torch.cuda.synchronize()
+    assert float(torch.ones(4, device=cuda).sum()) == 4.0
