@@ -166,7 +166,17 @@ Phases, in order; any failure exits non-zero before the result is printed:
    4, and with ``--steps-per-dispatch 1``, under deterministic algorithms:
    the logged losses and the resumed step equal bit for bit, with the
    launches of every replayed step;
-24. the kernels line: each kernel on the inputs the main paths gave it,
+24. ``bench-validate``: the bench's train line (``bench.bench_train``, in
+   this process, ``BENCH_STEPS`` timed steps) on ``fpn_mask`` 800×1024 b2
+   in float32 and in bfloat16 and on ``darknet_keypoint`` 256×320 b8, with
+   its self-validation keys printed: ``step_flops`` must be positive and
+   ``implied_mfu`` in (0, ``MFU_SUSPECT_BOUND``]; the launches of its timed
+   steps are those of phase 5 (none of B2 and B1 under ``darknet_keypoint``'s
+   gather pool); a slow or clock flag is printed with its reason. Then the
+   FLOP count of one ``tiny_test`` step on the card, under
+   ``set_sync_debug_mode("error")``, must equal the CPU's from the same
+   weights and batch;
+25. the kernels line: each kernel on the inputs the main paths gave it,
    held against its plain version, with both times, its bound (for the
    ROIAlign forward the work these inputs need, with the dense count beside
    it) and, where one PyTorch call computes the same function, that call's
@@ -214,6 +224,7 @@ from pathlib import Path
 import numpy as np
 import torch
 
+from maskrcnn_tpu_torch import bench
 from maskrcnn_tpu_torch.bench import (
     class_score_layer,
     passing_pairs,
@@ -258,9 +269,10 @@ from maskrcnn_tpu_torch.train.step import SamplerDraws, make_train_step
 from maskrcnn_tpu_torch.utils.chainer_npz import emit_model_npz
 from maskrcnn_tpu_torch.utils.convert_chainer import load_pretrained_npz
 from maskrcnn_tpu_torch.utils.device import card_name_and_power_limit
+from maskrcnn_tpu_torch.utils.peaks import H100_SXM
 
-HBM_BYTES_PER_S = 3.35e12  # H100 SXM device memory
-F32_FLOPS = 67e12  # H100 SXM float32 outside the tensor cores
+HBM_BYTES_PER_S = H100_SXM.hbm_bytes_per_s  # the bounds' peaks (utils/peaks.py)
+F32_FLOPS = H100_SXM.float32
 F32_TOL = 1e-5  # kernel vs plain, max abs / max |plain|: summation order
 #   (the ROIAlign forward contracts Bx first, the plain version By first)
 BF16_TOL = 1e-2  # bf16 features, same measure
@@ -338,6 +350,16 @@ KERNELS = [
 ]
 NMS_CALLS = {}  # path → the NMS kernel's inputs there (request 0, the
 #   warm-up step), for the kernels phase
+BENCH_VALIDATE = [("fpn_mask", "float32", {ROI_ALIGN.name: 2, SCATTER.name: 1}),
+                  ("fpn_mask", "bfloat16", {ROI_ALIGN.name: 2, SCATTER.name: 1}),
+                  ("darknet_keypoint", "float32",
+                   {ROI_ALIGN.name: 0, SCATTER.name: 0})]  # the bench's
+#   train line at the preset's own size and batch: (preset, dtype, B2 and B1
+#   launches a step; NMS 1 on each)
+BENCH_STEPS = 10  # the bench's timed steps, and its back-to-back ones
+BENCH_KEYS = ("step_flops", "implied_tflops_per_sec", "implied_mfu",
+              "step_ms_chained", "step_ms_p50", "final_loss", "vs_baseline",
+              "expected_step_ms")  # the self-validation's keys, printed
 CHAIN_K = 4  # steps a chained call in the chain phases
 CHAIN = {"chain": ("fpn_mask", (800, 1024), 2),
          "chain-dk": ("darknet_keypoint", (256, 320), 8)}  # tag: (preset,
@@ -2471,6 +2493,53 @@ def phase_chain_cli(seed: int) -> dict:
     return {k: sum(v[k] for v in launches.values()) for k in read_launches()}
 
 
+def phase_bench_validate(seed: int):
+    """``bench-validate`` (the module's docstring, phase 24)."""
+    t0 = time.perf_counter()
+    for preset, dtype, pools in BENCH_VALIDATE:
+        tag = f"[bench-validate] {preset} {dtype}"
+        record = bench.bench_train(bench.parse_args(
+            ["--mode", "train", "--preset", preset, "--dtype", dtype,
+             "--steps", str(BENCH_STEPS)]))
+        launches = record["kernel_launches_per_step"]
+        print(f"{tag}: {json.dumps({k: record.get(k) for k in BENCH_KEYS})}; "
+              f"launches a step {launches}; {card_name_and_power_limit()}")
+        if record.get("suspect"):
+            print(f"{tag}: suspect: {record['suspect_reason']}")
+        flops, mfu = record.get("step_flops"), record.get("implied_mfu")
+        if not flops or flops <= 0:
+            fail(f"{tag}: step_flops {flops}")
+        if mfu is None or not 0 < mfu <= bench.MFU_SUSPECT_BOUND:
+            fail(f"{tag}: implied_mfu {mfu} outside (0, {bench.MFU_SUSPECT_BOUND}]")
+        want = {**pools, NMS.name: 1}
+        if launches != want:
+            fail(f"{tag}: launches a step {launches}, expected {want}")
+    cfg = cfg_lib.tiny_test()
+    batch = SyntheticDetectionData(cfg, seed=seed).batch(0)
+    counts = {}
+    for dev in ("cuda", "cpu"):
+        state = create_train_state(cfg, MaskRCNN(cfg, seed=seed, device=dev))
+        step = make_train_step(cfg)
+        if dev == "cpu":
+            counts[dev] = bench.step_flops(step, state, batch)
+            continue
+        step(state, batch)  # cuBLAS and cuDNN set up outside the check
+        on_card = step_mod.to_device(batch, state.model.device)
+        torch.cuda.synchronize()
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            counts[dev] = bench.step_flops(step, state, on_card)
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+        torch.cuda.synchronize()
+    print(f"[bench-validate] tiny_test 128x160 b2 step FLOPs: card "
+          f"{counts['cuda']}, CPU {counts['cpu']} (counted on the card under "
+          f"set_sync_debug_mode('error')); {time.perf_counter() - t0:.1f} s")
+    if counts["cuda"] != counts["cpu"]:
+        fail(f"[bench-validate] tiny_test's count on the card {counts['cuda']} "
+             f"differs from the CPU's {counts['cpu']}")
+
+
 def nms_b8_call(seed: int) -> tuple:
     """The RPN's NMS call of an ``fpn_mask`` 800×1024 b8 batch at the train
     budgets (the JAX bench's train batch): eight problems of 12000 boxes
@@ -2850,6 +2919,7 @@ def main(argv=None):
         paths[tag.replace("-", "_")] = (phase_chain(args.seed, preset, hw, batch, tag),
                                         [], [], [])
     paths["chain_cli"] = (phase_chain_cli(args.seed), [], [], [])
+    phase_bench_validate(args.seed)
     entries = phase_kernels_line(paths, nms_b8_call(args.seed))
     for entry in entries:
         entry["coco_launches_by_shape"] = {k: v[entry["name"]]

@@ -54,6 +54,24 @@ power limit and the (ROI, class) pairs that clear the score threshold in
 each of the 4 distinct requests (the load of per-class NMS); with
 ``--profile N`` also the device's busy share and the kernels that take its
 time, traced over N more graphed requests. Without a GPU it exits non-zero.
+
+Both lines check their own numbers, as the JAX bench does (its
+``_validate``). ``--mode train`` also counts the FLOPs of one eager
+optimizer step (:func:`step_flops`, on top of the timed steps), takes a
+second clock, ``step_ms_chained``: ``--steps`` steps enqueued back to back
+and closed by a value fetch of the last loss (``final_loss``), and derives
+``implied_tflops_per_sec`` and ``implied_mfu`` from it against the card's
+dense peak in the run's math mode (:mod:`maskrcnn_tpu_torch.utils.peaks`).
+The line is marked ``"suspect": true`` with a ``suspect_reason`` when the
+MFU passes ``MFU_SUSPECT_BOUND``, when the per-step clock and the
+back-to-back clock disagree by more than ``CLOCK_MISMATCH_BOUND`` either
+way, or when the back-to-back step runs over ``SLOW_SUSPECT_FACTOR`` times
+the ``expected_step_ms`` of a recorded configuration
+(``EXPECTED_STEP_MS``). The ``chained`` object gets the same count over its
+own ms per step. ``--mode predict`` applies the slow check to its p50 and
+counts no FLOPs. Both lines carry ``vs_baseline`` and the device's
+metadata (``platform``, ``device_kind``, ``n_devices``, ``torch_version``,
+``card``).
 """
 
 from __future__ import annotations
@@ -61,9 +79,11 @@ from __future__ import annotations
 import argparse
 import json
 import statistics
+import sys
 import time
 
 import torch
+from torch.utils.flop_counter import FlopCounterMode
 
 from maskrcnn_tpu_torch import config as cfg_lib
 from maskrcnn_tpu_torch.data.synthetic import (
@@ -81,9 +101,48 @@ from maskrcnn_tpu_torch.train.state import create_train_state
 from maskrcnn_tpu_torch.kernels import KERNELS
 from maskrcnn_tpu_torch.train.step import make_train_step, stack_batches
 from maskrcnn_tpu_torch.utils.device import card_name_and_power_limit
+from maskrcnn_tpu_torch.utils.peaks import math_mode, peak_flops
 
 # requests served before timing: lazy CUDA and cuDNN set-up, allocator growth
 WARMUP = 3
+
+# the JAX bench's bounds (its bench.py:44-51)
+MFU_SUSPECT_BOUND = 0.60  # a detection train step never reaches this share
+CLOCK_MISMATCH_BOUND = 2.0  # per-step over back-to-back clock, either way
+SLOW_SUSPECT_FACTOR = 1.5  # measured over expected step time
+
+# vs_baseline's anchors, the reference's (not TPU times): 1.0 images/s of
+# training (BASELINE.md:30-40) and 1000 ms a batch-1 request (the JAX
+# bench.py:230-231)
+BASELINE_IMAGES_PER_S = 1.0
+BASELINE_REQUEST_MS = 1000.0
+
+# Expected ms per step (train: the back-to-back clock; the graphed step at
+# K > 1: a chain's ms over K) or per request (predict: the replayed p50) of
+# the recorded configurations with this bench's default settings, float32
+# with TF32 off unless bfloat16 is named. Keyed by (preset, height, width,
+# batch, dtype, mode, K), K the steps a dispatch (1 for predict). Each is the
+# slower of two runs of this bench, one after the other on one NVIDIA H100
+# 80GB HBM3 at 700.00 W (``--steps 40 --steps-per-dispatch 20`` for train,
+# 20 requests for predict). Left out: ``tiny_test``'s eager train step,
+# which the host sets: its back-to-back clock read from 22.60 to 39.73 ms
+# on three machines with that card.
+EXPECTED_STEP_MS = {
+    ("fpn_mask", 800, 1024, 2, "float32", "train", 1): 133.71,
+    ("fpn_mask", 800, 1024, 2, "bfloat16", "train", 1): 58.00,
+    ("darknet_keypoint", 256, 320, 8, "float32", "train", 1): 83.27,
+    ("fpn_mask", 800, 1024, 2, "float32", "train", 20): 125.88,
+    ("fpn_mask", 800, 1024, 2, "bfloat16", "train", 20): 33.11,
+    ("darknet_keypoint", 256, 320, 8, "float32", "train", 20): 71.59,
+    ("tiny_test", 128, 160, 2, "float32", "train", 20): 8.65,
+    ("fpn_mask", 800, 1024, 1, "float32", "predict", 1): 20.82,
+    ("fpn_mask", 800, 1024, 1, "bfloat16", "predict", 1): 8.98,
+    ("fpn_keypoint", 800, 1024, 1, "float32", "predict", 1): 24.00,
+    ("light_head", 800, 1024, 1, "float32", "predict", 1): 18.08,
+    ("c4_res5", 800, 1024, 1, "float32", "predict", 1): 72.75,
+    ("tiny_test", 128, 160, 1, "float32", "predict", 1): 4.84,
+    ("darknet_keypoint", 256, 320, 1, "float32", "predict", 1): 4.27,
+}
 
 
 def predict_config(preset: str, batch: int, height: int, width: int,
@@ -99,15 +158,145 @@ def image_size(args) -> tuple[int, int]:
     return args.height or h, args.width or w
 
 
+def grad_accum_default(batch: int) -> int:
+    """The JAX bench's ``--grad-accum`` when none is given: micro-batches of
+    8 above batch 8, else the whole batch at once."""
+    return max(1, batch // 8) if batch > 8 else 1
+
+
 def bench_config(args, batch: int) -> cfg_lib.Config:
     """The preset at the requested size with the command line's settings."""
+    accum = grad_accum_default(batch) if args.grad_accum is None else args.grad_accum
     cfg = cfg_lib._rep(
         predict_config(args.preset, batch, *image_size(args), args.roi_align),
         model=dict(dtype=args.dtype, roi_align_acc=args.roi_align_acc,
                    remat=args.remat),
-        train=dict(grad_accum_steps=args.grad_accum,
+        train=dict(grad_accum_steps=accum,
                    momentum_dtype=args.momentum_dtype))
     return cfg_lib.apply_overrides(cfg, args.set)
+
+
+def expected_step_ms(args, cfg: cfg_lib.Config, mode: str, k: int = 1) -> float | None:
+    """``EXPECTED_STEP_MS`` of this configuration, or None. Only the
+    recorded settings are validated, as in the JAX bench: ``--set``, a
+    non-default ``--roi-align``, ``--roi-align-acc``, ``--remat``,
+    ``--grad-accum`` or ``--momentum-dtype`` shift the cost."""
+    if (args.set or args.roi_align != "auto" or args.roi_align_acc != "float32"
+            or args.remat or args.grad_accum is not None
+            or args.momentum_dtype is not None):
+        return None
+    h, w = cfg.train.image_size
+    return EXPECTED_STEP_MS.get(
+        (args.preset, h, w, cfg.train.batch_size, cfg.model.dtype, mode, k))
+
+
+def validate(record: dict, flops: float | None, peak: float | None,
+             step_ms_chained: float, step_ms_p50: float,
+             expected_ms: float | None = None) -> None:
+    """The JAX bench's ``_validate``: add ``step_flops``,
+    ``implied_tflops_per_sec`` and ``implied_mfu`` (over ``peak``, FLOP/s)
+    and ``expected_step_ms`` to ``record`` where known, and ``"suspect":
+    true`` with a ``suspect_reason`` where a check trips. The MFU divides
+    by ``step_ms_chained``, the clock the slow check reads; the clock check
+    compares it with ``step_ms_p50``."""
+    reasons = []
+    if expected_ms is not None:
+        record["expected_step_ms"] = expected_ms
+        if step_ms_chained > SLOW_SUSPECT_FACTOR * expected_ms:
+            reasons.append(
+                f"step {step_ms_chained:.2f} ms exceeds {SLOW_SUSPECT_FACTOR}x "
+                f"the expected {expected_ms:.2f} ms for this config: a code "
+                "regression or a degraded card")
+    if flops is not None:
+        record["step_flops"] = flops
+        implied = flops / (step_ms_chained / 1e3)
+        record["implied_tflops_per_sec"] = implied / 1e12
+        if peak is not None:
+            mfu = implied / peak
+            record["implied_mfu"] = mfu
+            if mfu > MFU_SUSPECT_BOUND:
+                reasons.append(
+                    f"implied MFU {mfu:.3f} exceeds {MFU_SUSPECT_BOUND} of the "
+                    f"{peak / 1e12:.1f} TFLOP/s peak: physically implausible")
+    ratio = step_ms_p50 / max(step_ms_chained, 1e-9)
+    if ratio > CLOCK_MISMATCH_BOUND or ratio < 1.0 / CLOCK_MISMATCH_BOUND:
+        reasons.append(
+            f"back-to-back clock {step_ms_chained:.2f} ms a step disagrees "
+            f"with the per-step clock's p50 {step_ms_p50:.2f} ms by "
+            f"{ratio:.2f}x: a clock that does not wait for the device")
+    if reasons:
+        record["suspect"] = True
+        record["suspect_reason"] = "; ".join(reasons)
+
+
+class _StepFlops(FlopCounterMode):
+    """``FlopCounterMode`` that leaves out the ops a hand-written kernel's
+    wrapper runs: on the card the wrapper launches its kernel, which a
+    dispatch mode never sees, and on the CPU its plain version, which the
+    card never runs (NMS's Jacobi sweeps, one ``bmm`` a sweep, as many as
+    the boxes need; ROIAlign's two ``einsum``). So the count is the same on
+    both devices and does not depend on the data."""
+
+    _wrappers = frozenset(type(k).__call__.__code__ for k in KERNELS)
+
+    def _count_flops(self, func_packet, out, args, kwargs):
+        if func_packet in self.flop_registry:
+            frame = sys._getframe(1)
+            while frame is not None:
+                if frame.f_code in self._wrappers:
+                    return out
+                frame = frame.f_back
+        return super()._count_flops(func_packet, out, args, kwargs)
+
+
+def step_flops(step, state, batch) -> int:
+    """The FLOPs of one eager optimizer step ``step(state, batch)`` (a
+    ``make_train_step(cfg)`` step, K=1), counted by ``FlopCounterMode``:
+    convolutions, matmuls and their backward, every micro-batch of
+    ``grad_accum_steps`` and ``remat``'s recomputed forward, all of which
+    the card runs. The step is real: it ADVANCES ``state`` (parameters,
+    momentum, step, generator). Count outside any timed step and any CUDA
+    graph capture: a dispatch mode cannot run inside a capture, and it
+    slows the host.
+
+    The hand-written kernels add nothing (:class:`_StepFlops`). They do
+    little arithmetic: on ``fpn_mask`` 800×1024 b2 in float32 the ROIAlign
+    forward's two calls take 0.039 ms, the region scatter 0.191 ms and NMS
+    0.252 ms of a 134 ms step (``chip_smoke.py``'s kernels line, NVIDIA
+    H100 80GB HBM3, 700.00 W)."""
+    counter = _StepFlops(display=False)
+    with counter:
+        step(state, batch)
+    return counter.get_total_flops()
+
+
+def time_back_to_back(step, state, batches) -> tuple[float, float]:
+    """The JAX bench's chained clock: one step per batch, enqueued back to
+    back with no sync between them, the host clock closed by a value fetch
+    of the last loss (``.item()``) → (ms per step, that loss). The fetch is
+    a copy queued on the step's stream after the last step's every kernel,
+    the optimizer's included, so it cannot return before they end.
+
+    Not to be confused with ``--steps-per-dispatch K`` (the line's
+    ``chained`` object): there each call replays a CUDA graph of the step K
+    times, timed by CUDA events per call. Here every step is the same eager
+    step that ``value`` and ``step_ms_p50`` time one at a time, each waited
+    for; only the waits differ."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for batch in batches:
+        metrics = step(state, batch)
+    final_loss = metrics["loss"].item()
+    return (time.perf_counter() - t0) * 1e3 / len(batches), final_loss
+
+
+def device_meta() -> dict:
+    """The device fields of a line (the JAX bench's ``_device_meta``), with
+    the card's name and power limit."""
+    return {"platform": "gpu", "device_kind": torch.cuda.get_device_name(0),
+            "n_devices": torch.cuda.device_count(),
+            "torch_version": torch.__version__,
+            "card": card_name_and_power_limit()}
 
 
 def settings(cfg: cfg_lib.Config) -> dict:
@@ -338,6 +527,9 @@ def bench_chained(args, cfg, batches, k: int) -> dict:
 
 
 def bench_train(args) -> dict:
+    """The train line: the timed steps, then (on top of them) one counted
+    step and the back-to-back clock over ``args.steps`` more, then the
+    chained object; every check of :func:`validate` applied."""
     batch = args.batch or cfg_lib.PRESETS[args.preset]().train.batch_size
     cfg = bench_config(args, batch)
     h, w = cfg.train.image_size
@@ -356,18 +548,27 @@ def bench_train(args) -> dict:
                                  [(b,) for b in batches[n:]], top=16)
                 if args.profile else {})
     proposals = time_train_proposals(cfg, state.model, batches[0])
+    flops = step_flops(step, state, batches[0])
+    chained_ms, final_loss = time_back_to_back(step, state, batches[warmup:n])
+    peak_rate = peak_flops(torch.cuda.get_device_name(0), math_mode(cfg.model.dtype))
     chained = {}
     if args.steps_per_dispatch > 1:
         del state, step
-        chained = {"chained": bench_chained(args, cfg, batches[:4],
-                                            args.steps_per_dispatch)}
+        k = args.steps_per_dispatch
+        chained = bench_chained(args, cfg, batches[:4], k)
+        validate(chained, flops, peak_rate, chained["step_ms_p50"],
+                 chained["step_ms_p50"], expected_step_ms(args, cfg, "train", k))
+        chained = {"chained": chained}
     ms = statistics.median(times)
-    return {
+    record = {
         "metric": f"train_images_per_s_{args.preset}_{h}x{w}_b{batch}",
         "value": batch * 1e3 / ms,
         "unit": "images/s",
+        "vs_baseline": batch * 1e3 / ms / BASELINE_IMAGES_PER_S,
         "step_ms_p50": ms,
         "step_ms_max": max(times),
+        "step_ms_chained": chained_ms,
+        "final_loss": final_loss,
         "steps_per_s": 1e3 / ms,
         "steps": args.steps,
         "peak_memory_gib": peak / 2**30,
@@ -379,9 +580,51 @@ def bench_train(args) -> dict:
         **profiled,
         **chained,
     }
+    validate(record, flops, peak_rate, chained_ms, ms,
+             expected_step_ms(args, cfg, "train"))
+    return record
 
 
-def main(argv=None):
+def bench_predict(args) -> dict:
+    """The predict line, the slow check applied to its p50."""
+    batch = args.batch or 1
+    cfg = bench_config(args, batch)
+    h, w = cfg.train.image_size
+    model = spread_class_scores(MaskRCNN(cfg, seed=0))
+    predict = make_predict_fn(cfg, model)
+    data = SyntheticRequests(cfg, seed=0)
+    n = WARMUP + args.steps
+    requests = [tuple(data.batch(i % 4)) for i in range(n + args.profile)]
+    turns = time_in_turns({"graphed": predict, "eager": predict.eager},
+                          requests[:n], WARMUP)
+    times, dets = turns["graphed"]
+    eager_times = turns["eager"][0]
+    profiled = profile_requests(predict, requests[n:]) if args.profile else {}
+    pairs = passing_pairs(cfg, model, predict, requests[:4])
+    graph, = predict.graphs.values()
+    p50 = percentile(times, 0.5)
+    record = {
+        "metric": f"predict_p50_ms_{args.preset}_{h}x{w}_b{batch}",
+        "value": p50,
+        "unit": "ms",
+        "vs_baseline": BASELINE_REQUEST_MS / p50,
+        "p90_ms": percentile(times, 0.9),
+        "steps": args.steps,
+        "eager": {"p50_ms": percentile(eager_times, 0.5),
+                  "p90_ms": percentile(eager_times, 0.9)},
+        "graph": {"capture_s": graph.capture_s, "captures": graph.captures,
+                  "reserved_gib": graph.reserved_bytes / 2**30},
+        "valid_detections_mean": sum(int(d.valid.sum()) for d in dets) / len(dets),
+        "passing_pairs_per_request": pairs,
+        "settings": settings(cfg),
+        **profiled,
+    }
+    # no FLOP count for a request, as in the JAX bench: the slow check only
+    validate(record, None, None, p50, p50, expected_step_ms(args, cfg, "predict"))
+    return record
+
+
+def parse_args(argv=None) -> argparse.Namespace:
     p = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     p.add_argument("--mode", default="predict", choices=["predict", "train"])
     p.add_argument("--preset", default="fpn_mask")
@@ -403,8 +646,9 @@ def main(argv=None):
                    help="model.roi_align_acc: the region scatter's accumulator")
     p.add_argument("--remat", action="store_true",
                    help="model.remat: checkpoint the backbone")
-    p.add_argument("--grad-accum", type=int, default=1, metavar="N",
-                   help="train.grad_accum_steps")
+    p.add_argument("--grad-accum", type=int, default=None, metavar="N",
+                   help="train.grad_accum_steps (default: batch//8 above "
+                        "batch 8, else 1)")
     p.add_argument("--momentum-dtype", default=None, choices=["bfloat16"],
                    help="train.momentum_dtype (default: float32)")
     p.add_argument("--set", action="append", default=[],
@@ -416,50 +660,17 @@ def main(argv=None):
     p.add_argument("--steps-per-dispatch", type=int, default=1, metavar="K",
                    help="train: also time make_train_step(chain=K), K steps "
                         "a call (a CUDA graph's replays)")
-    args = p.parse_args(argv)
+    return p.parse_args(argv)
 
+
+def main(argv=None):
+    args = parse_args(argv)
     if not torch.cuda.is_available():
         raise SystemExit("bench: no CUDA device; the benchmark runs on the GPU")
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
-
-    common = {"roi_align": args.roi_align,
-              "device": torch.cuda.get_device_name(0),
-              "card": card_name_and_power_limit(), "torch": torch.__version__}
-    if args.mode == "train":
-        print(json.dumps({**bench_train(args), **common}))
-        return
-    batch = args.batch or 1
-    cfg = bench_config(args, batch)
-    h, w = cfg.train.image_size
-    model = spread_class_scores(MaskRCNN(cfg, seed=0))
-    predict = make_predict_fn(cfg, model)
-    data = SyntheticRequests(cfg, seed=0)
-    n = WARMUP + args.steps
-    requests = [tuple(data.batch(i % 4)) for i in range(n + args.profile)]
-    turns = time_in_turns({"graphed": predict, "eager": predict.eager},
-                          requests[:n], WARMUP)
-    times, dets = turns["graphed"]
-    eager_times = turns["eager"][0]
-    profiled = profile_requests(predict, requests[n:]) if args.profile else {}
-    pairs = passing_pairs(cfg, model, predict, requests[:4])
-    graph, = predict.graphs.values()
-    print(json.dumps({
-        "metric": f"predict_p50_ms_{args.preset}_{h}x{w}_b{batch}",
-        "value": percentile(times, 0.5),
-        "unit": "ms",
-        "p90_ms": percentile(times, 0.9),
-        "steps": args.steps,
-        "eager": {"p50_ms": percentile(eager_times, 0.5),
-                  "p90_ms": percentile(eager_times, 0.9)},
-        "graph": {"capture_s": graph.capture_s, "captures": graph.captures,
-                  "reserved_gib": graph.reserved_bytes / 2**30},
-        "valid_detections_mean": sum(int(d.valid.sum()) for d in dets) / len(dets),
-        "passing_pairs_per_request": pairs,
-        "settings": settings(cfg),
-        **common,
-        **profiled,
-    }))
+    record = bench_train(args) if args.mode == "train" else bench_predict(args)
+    print(json.dumps({**record, "roi_align": args.roi_align, **device_meta()}))
 
 
 if __name__ == "__main__":
