@@ -30,16 +30,17 @@ and images per second, the peak device memory of a step (allocated, and
 reserved by the caching allocator: a CUDA graph's pool, allocated at
 capture, counts only in the latter), the last step's
 losses, the hand-written kernels' launches per step, and the time and
-memory of proposal generation (exact NMS) alone; with ``--profile N`` also
-the device's busy share and the kernels that take its time, traced over N
-more steps. The FPN heads train through the shared window under
+memory of proposal generation (exact NMS) alone; with ``--profile N`` also,
+under ``traced``, the program's tracer's summary of N more steps
+(:func:`traced`). The FPN heads train through the shared window under
 ``--roi-align`` auto, region or fused and through two pools under gather or
 pallas; the light and Res5 heads always pool twice. With
 ``--steps-per-dispatch K`` (K > 1) the line also holds, under ``chained``,
 the same numbers for ``make_train_step(cfg, chain=K)`` from a fresh state on
 the same batches: each call runs K steps, replays of a CUDA graph of the
 step after the first call's capture; ms per step is a chain's time over K,
-and ``--profile N`` traces N/K chains.
+and ``--profile N`` traces N/K chains (a first one captures the traced
+graph).
 
 ``--mode predict`` (batch 1 unless given) serves synthetic requests (seeded
 random weights with the class scores spread as :func:`spread_class_scores`
@@ -52,8 +53,9 @@ requests, timed in turns with the graphed ones; under ``graph`` the
 capture's seconds and its memory pool's reserved GiB; the card's name and
 power limit and the (ROI, class) pairs that clear the score threshold in
 each of the 4 distinct requests (the load of per-class NMS); with
-``--profile N`` also the device's busy share and the kernels that take its
-time, traced over N more graphed requests. Without a GPU it exits non-zero.
+``--profile N`` also, under ``traced``, the tracer's summary of N more
+graphed requests (two first ones capture the traced graph). Without a GPU
+it exits non-zero.
 
 Both lines check their own numbers, as the JAX bench does (its
 ``_validate``). ``--mode train`` also counts the FLOPs of one eager
@@ -100,6 +102,7 @@ from maskrcnn_tpu_torch.models.rpn import anchors_for, generate_proposals
 from maskrcnn_tpu_torch.train.state import create_train_state
 from maskrcnn_tpu_torch.kernels import KERNELS
 from maskrcnn_tpu_torch.train.step import make_train_step, stack_batches
+from maskrcnn_tpu_torch.utils import tracing
 from maskrcnn_tpu_torch.utils.device import card_name_and_power_limit
 from maskrcnn_tpu_torch.utils.peaks import math_mode, peak_flops
 
@@ -440,45 +443,26 @@ def time_train_proposals(cfg: cfg_lib.Config, model, batch, runs: int = 5) -> di
             "proposals_valid_per_image": props.valid.sum(dim=1).tolist()}
 
 
-def profile_requests(predict, requests, top: int = 12) -> dict:
-    """Trace ``predict(*request)`` over ``requests`` with ``torch.profiler``
-    → the device's busy share of the wall time, also of the wall time of
-    the same requests served untraced just before (the tracer adds host
-    time to each kernel of a replayed graph), the device kernels a request
-    runs and the ``top`` kernels by device time per request (a train step
-    is a request here, too)."""
-    from torch.profiler import ProfilerActivity, profile
-
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    for req in requests:
-        predict(*req)
-    torch.cuda.synchronize()
-    plain_ms = (time.perf_counter() - t0) * 1e3
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        for req in requests:
-            predict(*req)
-        torch.cuda.synchronize()
-        wall_ms = (time.perf_counter() - t0) * 1e3
-    kernels = [e for e in prof.key_averages()
-               if e.device_type == torch.autograd.DeviceType.CUDA]
-    busy_ms = sum(e.self_device_time_total for e in kernels) / 1e3
-    kernels.sort(key=lambda e: e.self_device_time_total, reverse=True)
-    n = len(requests)
-    return {
-        "wall_ms_per_request": wall_ms / n,
-        "device_ms_per_request": busy_ms / n,
-        "device_busy_share": busy_ms / wall_ms,
-        # the profiler's own cost grows with a graph's kernels: the same
-        # requests untraced, just before, against the traced device time
-        "wall_ms_per_request_untraced": plain_ms / n,
-        "device_busy_share_untraced": busy_ms / plain_ms,
-        "device_kernels_per_request": sum(e.count for e in kernels) / n,
-        "top_kernels_ms_per_request": [
-            [e.key[:90], e.self_device_time_total / 1e3 / n, e.count // n]
-            for e in kernels[:top]],
-    }
+def traced(fn, warm: list, calls: list) -> dict:
+    """``fn(*call)`` for each of ``warm`` and then of ``calls`` with the
+    program's tracer on → :func:`maskrcnn_tpu_torch.utils.tracing.summary`
+    of ``calls`` alone: per request or step, each device stage's median ms,
+    each host span's median and p95 ms, each work counter. ``warm`` makes
+    the traced graphs, which are kept apart from the untraced ones."""
+    sync = torch.cuda.synchronize if torch.cuda.is_available() else (lambda: None)
+    tracing.enable()
+    try:
+        for call in warm:
+            fn(*call)
+        sync()
+        tracing.reset()
+        for call in calls:
+            fn(*call)
+        sync()
+        return tracing.summary()
+    finally:
+        tracing.disable()
+        tracing.reset()
 
 
 def percentile(times, q: float) -> float:
@@ -500,15 +484,9 @@ def bench_chained(args, cfg, batches, k: int) -> dict:
         kernel.launches = 0
     times, metrics, peak = time_train_steps(step, state, chains[:n_chains], 2)
     reserved = torch.cuda.max_memory_reserved()
-    profiled = (profile_requests(lambda b: step(state, b),
-                                 [(c,) for c in chains[n_chains:]], top=16)
+    profiled = ({"traced": traced(lambda c: step(state, c), [(chains[0],)],
+                                  [(c,) for c in chains[n_chains:]])}
                 if args.profile else {})
-    if profiled:  # per step, not per chain
-        for key in ("wall_ms_per_request", "device_ms_per_request"):
-            profiled[key] /= k
-        for row in profiled["top_kernels_ms_per_request"]:
-            row[1] /= k
-            row[2] //= k
     ms = statistics.median(times) / k
     return {
         "steps_per_dispatch": k,
@@ -544,8 +522,8 @@ def bench_train(args) -> dict:
     times, metrics, peak = time_train_steps(step, state, batches[:n], warmup)
     reserved = torch.cuda.max_memory_reserved()
     launches = {k.name: k.launches / n for k in KERNELS}
-    profiled = (profile_requests(lambda b: step(state, b),
-                                 [(b,) for b in batches[n:]], top=16)
+    profiled = ({"traced": traced(lambda b: step(state, b), [],
+                                  [(b,) for b in batches[n:]])}
                 if args.profile else {})
     proposals = time_train_proposals(cfg, state.model, batches[0])
     flops = step_flops(step, state, batches[0])
@@ -599,9 +577,10 @@ def bench_predict(args) -> dict:
                           requests[:n], WARMUP)
     times, dets = turns["graphed"]
     eager_times = turns["eager"][0]
-    profiled = profile_requests(predict, requests[n:]) if args.profile else {}
+    profiled = ({"traced": traced(predict, requests[:2], requests[n:])}
+                if args.profile else {})
     pairs = passing_pairs(cfg, model, predict, requests[:4])
-    graph, = predict.graphs.values()
+    graph, = (g for key, g in predict.graphs.items() if not key[-1])  # untraced
     p50 = percentile(times, 0.5)
     record = {
         "metric": f"predict_p50_ms_{args.preset}_{h}x{w}_b{batch}",
@@ -655,8 +634,8 @@ def parse_args(argv=None) -> argparse.Namespace:
                    metavar="SECTION.KEY=VALUE",
                    help="config override, repeatable (e.g. model.freeze_bn=False)")
     p.add_argument("--profile", type=int, default=0, metavar="N",
-                   help="then trace N more requests with torch.profiler and "
-                        "add the device time by kernel to the line")
+                   help="then trace N more requests or steps with the "
+                        "program's tracer and add its summary to the line")
     p.add_argument("--steps-per-dispatch", type=int, default=1, metavar="K",
                    help="train: also time make_train_step(chain=K), K steps "
                         "a call (a CUDA graph's replays)")

@@ -61,7 +61,11 @@ it broadcasts; every rank restores the same checkpoint on ``--resume``.
 or an ImageNet ResNet-50's backbone; rank 0 loads, then every rank takes
 its weights). ``--profile-dir`` writes a ``torch.profiler`` trace of steps
 10–20 (Chrome trace JSON, which Perfetto and TensorBoard read; rank 0's
-under DP; with chaining, the chains that span those steps).
+under DP; with chaining, the chains that span those steps). The program's
+tracer (:mod:`maskrcnn_tpu_torch.utils.tracing`) is on for the lead rank
+over the same steps, so the trace carries the step's spans (``train_call``,
+``train.*``) and a chained step is captured again with its stage events;
+the tracer's summary is printed beside the trace's path.
 
 ``--steps-per-dispatch K`` chains K optimizer steps into one call of the
 step (``make_train_step(chain=K)``: on the GPU the replays of a CUDA graph
@@ -521,8 +525,9 @@ def _train(args, cfg, label_names, device, rank, world, lead):
             metrics = {k: v.reshape(1) for k, v in metrics.items()}
         step_i = it + chain
         if profiler is not None and step_i - start >= 20:
-            print(f"[profile] steps {first_profiled}-{step_i}: "
-                  f"{stop_profiler(profiler, device, args.profile_dir, rank)}")
+            path, summary = stop_profiler(profiler, device, args.profile_dir, rank)
+            print(f"[profile] steps {first_profiled}-{step_i}: {path}")
+            print(f"[profile] tracing summary: {json.dumps(summary)}")
             profiler, profiled = None, True
         if step_i // TRAP_EVERY > it // TRAP_EVERY:
             # every rank reads the same summed loss, so all stop together
@@ -571,9 +576,14 @@ def _train(args, cfg, label_names, device, rank, world, lead):
 
 def start_profiler(device):
     """A started ``torch.profiler`` over the host and, on a GPU, the card
-    (after the steps before it have finished there)."""
+    (after the steps before it have finished there), with the program's
+    tracer on."""
     import torch
 
+    from maskrcnn_tpu_torch.utils import tracing
+
+    tracing.reset()
+    tracing.enable()
     activities = [torch.profiler.ProfilerActivity.CPU]
     if device.type == "cuda":
         torch.cuda.synchronize(device)
@@ -583,17 +593,23 @@ def start_profiler(device):
     return profiler
 
 
-def stop_profiler(profiler, device, out_dir: str, rank: int) -> str:
-    """Stop the profiler and write its Chrome trace → the file's path."""
+def stop_profiler(profiler, device, out_dir: str, rank: int) -> tuple[str, dict]:
+    """Stop the profiler and the tracer and write the Chrome trace → (the
+    file's path, the tracer's summary)."""
     import torch
+
+    from maskrcnn_tpu_torch.utils import tracing
 
     if device.type == "cuda":
         torch.cuda.synchronize(device)
     profiler.stop()
+    tracing.disable()
+    summary = tracing.summary()
+    tracing.reset()
     os.makedirs(out_dir, exist_ok=True)
     path = os.path.join(out_dir, f"trace_rank{rank}.json")
     profiler.export_chrome_trace(path)
-    return path
+    return path, summary
 
 
 if __name__ == "__main__":

@@ -24,12 +24,21 @@ replays the graph (:class:`GraphedPredict`). A replay runs only device
 work, so a forward hook or a function patched into a module never runs in
 it: code that hooks or patches the path calls ``predict.eager``, the same
 request without the graph. On the CPU ``predict`` is ``predict.eager``.
+
+With :mod:`maskrcnn_tpu_torch.utils.tracing` on, a request records the
+spans ``predict`` (its id the function's call count) around
+``predict.stage``, ``predict.check``, ``predict.replay`` and
+``predict.clone``; the body marks the device stages ``backbone``,
+``proposals``, ``box_head``, ``detections`` and ``mask_head`` and counts
+its kept proposals, (class, ROI) pairs entering per-class NMS and valid
+detections against their slots. A request served with tracing on replays
+a graph captured with it on, kept apart from the untraced one.
 """
 
 from __future__ import annotations
 
+import itertools
 import os
-import time
 import traceback
 from typing import NamedTuple
 
@@ -46,6 +55,7 @@ from maskrcnn_tpu_torch.models.rpn import anchors_for, generate_proposals, top_k
 from maskrcnn_tpu_torch.ops.boxes import clip_boxes, loc2bbox
 from maskrcnn_tpu_torch.ops.levels import map_rois_to_fpn_levels
 from maskrcnn_tpu_torch.ops.nms import nms_padded
+from maskrcnn_tpu_torch.utils import tracing
 from maskrcnn_tpu_torch.utils.device import device_constant
 
 
@@ -145,8 +155,8 @@ def make_predict_fn(cfg: Config, model: MaskRCNN, image_size=None):
     a signature captures a CUDA graph and later calls replay it (the
     module's docstring); ``predict.eager`` serves a request without the
     graph, ``predict.body`` is the captured part (device tensors in, no
-    host work) and ``predict.graphs`` maps each signature to its
-    :class:`GraphedPredict`.
+    host work) and ``predict.graphs`` maps each signature and tracing
+    flag to its :class:`GraphedPredict`.
     """
     h, w = image_size or cfg.train.image_size
     feat_strides, _ = backbone_geometry(cfg)
@@ -164,8 +174,9 @@ def make_predict_fn(cfg: Config, model: MaskRCNN, image_size=None):
         (B, 2) and scale (B,) float32. It reads its inputs only through
         these tensors and never waits for the device."""
         b = images.shape[0]
+        tracing.stage("backbone")
         features, rpn_locs, rpn_scores = model(images)
-        roi_feats = model.roi_features(features)
+        tracing.stage("proposals")
         props = generate_proposals(
             rpn_locs, rpn_scores, anchors, scale, img_hw,
             n_pre=cfg.proposals.n_test_pre_nms,
@@ -173,6 +184,10 @@ def make_predict_fn(cfg: Config, model: MaskRCNN, image_size=None):
             nms_thresh=cfg.proposals.nms_thresh,
             min_size=cfg.proposals.min_size, n_levels=n_levels,
         )
+        tracing.count("proposals_kept", props.valid)
+        tracing.count("proposal_slots", props.valid.numel(), dev)
+        tracing.stage("box_head")
+        roi_feats = model.roi_features(features)
         r = props.rois.shape[1]
         batch_idx = image_index(b, r, dev)
         locs, roi_scores = model.head_box(
@@ -180,6 +195,7 @@ def make_predict_fn(cfg: Config, model: MaskRCNN, image_size=None):
             props.levels.reshape(b * r))
         probs = torch.softmax(roi_scores, dim=-1).reshape(b, r, -1)
         locs = locs.reshape(b, r, -1)
+        tracing.stage("detections")
         cls_boxes, cls_scores, cls_valid = (torch.stack(t) for t in zip(*(
             decode_boxes(cfg, props.rois[i], locs[i], probs[i],
                          props.valid[i], img_hw[i]) for i in range(b))))
@@ -190,28 +206,40 @@ def make_predict_fn(cfg: Config, model: MaskRCNN, image_size=None):
             torch.stack(t) for t in zip(*(
                 merge_top(cls_boxes[i], cls_scores[i], props.levels[i],
                           keep_idx[i], keep_valid[i], d) for i in range(b))))
+        tracing.count("nms_candidates", cls_valid)
+        tracing.count("detections_valid", det_valid)
+        tracing.count("detection_slots", det_valid.numel(), dev)
+        tracing.stage("mask_head")
         masks, heatmaps = predict_masks(cfg, model, roi_feats, det_boxes,
                                         det_labels, det_levels)
         return Detections(det_boxes, det_scores, det_labels, det_valid, masks,
                           heatmaps)
 
+    calls = itertools.count()  # the requests' ids
+
+    def serve_eager(images, img_hw, scale) -> Detections:
+        with tracing.stages(dev):
+            return body(*request_tensors(images, img_hw, scale, dev))
+
     @torch.inference_mode()
     def eager(images, img_hw, scale) -> Detections:
-        return body(*request_tensors(images, img_hw, scale, dev))
+        with tracing.span("predict.eager", next(calls)):
+            return serve_eager(images, img_hw, scale)
 
     graphs: dict[tuple, GraphedPredict] = {}
 
     @torch.inference_mode()
     def predict(images, img_hw, scale) -> Detections:
-        if dev.type != "cuda":
-            return eager(images, img_hw, scale)
-        inputs = request_tensors(images, img_hw, scale)
-        key = (tuple(inputs[0].shape), inputs[0].dtype)
-        graph = graphs.get(key)
-        if graph is None:
-            graph = graphs[key] = GraphedPredict(body, dev, inputs)
-            return graph.warm_up(inputs)
-        return graph.replay(inputs, model)
+        with tracing.span("predict", next(calls)):
+            if dev.type != "cuda":
+                return serve_eager(images, img_hw, scale)
+            inputs = request_tensors(images, img_hw, scale)
+            key = (tuple(inputs[0].shape), inputs[0].dtype, tracing.is_on())
+            graph = graphs.get(key)
+            if graph is None:
+                graph = graphs[key] = GraphedPredict(body, dev, inputs)
+                return graph.warm_up(inputs)
+            return graph.replay(inputs, model)
 
     predict.eager, predict.body, predict.graphs = eager, body, graphs
     return predict
@@ -261,7 +289,9 @@ class GraphedPredict:
     the device constants are set up there before anything is captured.
     ``capture(model)`` records ``body`` on that stream against static
     input buffers, in a memory pool of the graph's own (``reserved_bytes``,
-    ``capture_s``). ``replay(inputs, model)`` copies a request into the
+    ``capture_s``, the ``capture`` span's seconds). With tracing on, the
+    capture records the body's stage events into the graph (``stages``),
+    read for each replay. ``replay(inputs, model)`` copies a request into the
     buffers (a host array through a pinned buffer of the graph's own, so
     that the copy does not wait for the device), captures first if the
     model's tensors have moved, replays and returns clones of the outputs,
@@ -286,7 +316,7 @@ class GraphedPredict:
         self.pinned = tuple(torch.empty(x.shape, dtype=x.dtype, pin_memory=True)
                             for x in inputs)
         self.staged = torch.cuda.Event()  # the last copy out of ``pinned``
-        self.graph = self.outputs = self.tensors = None
+        self.graph = self.outputs = self.tensors = self.stages = None
         self.launches = [0] * len(launch_counts())
         self.captures = self.replays = 0
         self.capture_s = self.reserved_bytes = None
@@ -294,19 +324,21 @@ class GraphedPredict:
     def _stage(self, inputs):
         """Each input into its static buffer on the current stream; a host
         array goes through ``pinned`` once the last copy out of it ran."""
-        self.staged.synchronize()
-        for static, pinned, x in zip(self.static, self.pinned, inputs):
-            if x.device.type == "cpu":
-                x = pinned.copy_(x)
-            static.copy_(x, non_blocking=True)
-        self.staged.record()
+        with tracing.span("predict.stage"):
+            self.staged.synchronize()
+            for static, pinned, x in zip(self.static, self.pinned, inputs):
+                if x.device.type == "cpu":
+                    x = pinned.copy_(x)
+                static.copy_(x, non_blocking=True)
+            self.staged.record()
 
     def warm_up(self, inputs) -> Detections:
         current = torch.cuda.current_stream(self.device)
         self.stream.wait_stream(current)
         with torch.cuda.stream(self.stream):
             self._stage(inputs)
-            det = self.body(*self.static)
+            with tracing.stages(self.device):
+                det = self.body(*self.static)
         current.wait_stream(self.stream)
         for t in det:
             if t is not None:  # made on the side stream, read on this one
@@ -314,38 +346,46 @@ class GraphedPredict:
         return det
 
     def capture(self, model):
-        self.graph = self.outputs = None  # the last graph's pool goes first
-        t0 = time.perf_counter()
-        graph = torch.cuda.CUDAGraph()
-        before = launch_counts()
-        self.stream.wait_stream(torch.cuda.current_stream(self.device))
-        try:
-            with torch.cuda.graph(graph, stream=self.stream):
-                reserved = torch.cuda.memory_reserved(self.device)
-                outputs = self.body(*self.static)
-        except RuntimeError as err:
-            take_back_launches(before)
-            raise RuntimeError(
-                "predict: capturing the request into a CUDA graph failed at "
-                f"{_where(err)}: a replay cannot wait for the host or copy "
-                "host data (no .item(), no tensor built from host values; "
-                "constants through utils/device.py:device_constant)") from err
-        self.launches = take_back_launches(before)
-        torch.cuda.current_stream(self.device).wait_stream(self.stream)
-        self.reserved_bytes = torch.cuda.memory_reserved(self.device) - reserved
-        self.graph, self.outputs, self.tensors = graph, outputs, ModelTensors(model)
-        self.captures += 1
-        self.capture_s = time.perf_counter() - t0
+        self.graph = self.outputs = self.stages = None  # the last graph's
+        #   pool goes first
+        with tracing.timed("capture", self.device) as timed:
+            graph = torch.cuda.CUDAGraph()
+            before = launch_counts()
+            self.stream.wait_stream(torch.cuda.current_stream(self.device))
+            try:
+                with torch.cuda.graph(graph, stream=self.stream):
+                    reserved = torch.cuda.memory_reserved(self.device)
+                    with tracing.stages(self.device) as stages:
+                        outputs = self.body(*self.static)
+            except RuntimeError as err:
+                take_back_launches(before)
+                raise RuntimeError(
+                    "predict: capturing the request into a CUDA graph failed at "
+                    f"{_where(err)}: a replay cannot wait for the host or copy "
+                    "host data (no .item(), no tensor built from host values; "
+                    "constants through utils/device.py:device_constant)") from err
+            self.launches = take_back_launches(before)
+            torch.cuda.current_stream(self.device).wait_stream(self.stream)
+            self.reserved_bytes = torch.cuda.memory_reserved(self.device) - reserved
+            self.graph, self.outputs, self.tensors = graph, outputs, ModelTensors(model)
+            self.stages = stages
+            self.captures += 1
+        self.capture_s = timed.seconds
 
     def replay(self, inputs, model) -> Detections:
         self._stage(inputs)  # the copies run while the host checks the model
-        if self.graph is None or self.tensors.moved():
+        with tracing.span("predict.check"):
+            stale = self.graph is None or self.tensors.moved()
+        if stale:
             self.capture(model)
-        self.graph.replay()
+        with tracing.span("predict.replay"):
+            tracing.replaying(self.stages)
+            self.graph.replay()
         add_launches(self.launches)
         self.replays += 1
-        return Detections(*(None if t is None else t.clone()
-                            for t in self.outputs))
+        with tracing.span("predict.clone"):
+            return Detections(*(None if t is None else t.clone()
+                                for t in self.outputs))
 
 
 def _where(err: BaseException) -> str:

@@ -46,6 +46,16 @@ replay it K times. The draws are made eagerly before the replays, in the
 eager step's order, from ``state.generator``, so replayed steps sample
 what eager steps sample and the generator resumes alike. Not under data
 parallelism (as in JAX).
+
+With :mod:`maskrcnn_tpu_torch.utils.tracing` on, a call records the spans
+``train_call`` (its id ``state.step``) around ``train.stage`` (the batch
+up), ``train.draws``, ``train.step`` (an eager step), ``capture``,
+``train.replay`` (one a replayed step, its id the step's) and
+``train.collect``; the step marks the device stages ``forward``,
+``proposals``, ``targets``, ``heads``, ``backward`` and ``optimizer``
+(repeated stages of micro-batches summed) and counts kept proposals and
+positive mask ROIs against their slots. A chained call recaptures its
+graph when the tracing flag differs from its capture's.
 """
 
 from __future__ import annotations
@@ -80,6 +90,7 @@ from maskrcnn_tpu_torch.targets.proposal_targets import (
 )
 from maskrcnn_tpu_torch.train import losses as L
 from maskrcnn_tpu_torch.train.state import TrainState, lr_on_device, lr_schedule
+from maskrcnn_tpu_torch.utils import tracing
 
 class Batch(NamedTuple):
     """One fixed-shape batch, arrays or tensors. Padded everywhere; the
@@ -176,8 +187,10 @@ def make_train_step(cfg: Config, image_size: tuple[int, int] | None = None,
         return on_device[dev]
 
     def loss_fn(model: MaskRCNN, batch: Batch, draws: SamplerDraws, anchors):
+        tracing.stage("forward")
         features, rpn_locs, rpn_scores = model(batch.images, train=True)
         with torch.no_grad():
+            tracing.stage("proposals")
             props = generate_proposals(
                 rpn_locs.detach(), rpn_scores.detach(), anchors, batch.scale,
                 batch.img_hw,
@@ -185,6 +198,9 @@ def make_train_step(cfg: Config, image_size: tuple[int, int] | None = None,
                 n_post=cfg.proposals.n_train_post_nms,
                 nms_thresh=cfg.proposals.nms_thresh,
                 min_size=cfg.proposals.min_size, n_levels=n_levels)
+            tracing.count("proposals_kept", props.valid)
+            tracing.count("proposal_slots", props.valid.numel(), props.valid.device)
+            tracing.stage("targets")
             sample = proposal_targets(
                 draws.proposal[:, 0], draws.proposal[:, 1], props.rois,
                 props.valid, props.levels, batch.gt_boxes, batch.gt_labels,
@@ -218,6 +234,7 @@ def make_train_step(cfg: Config, image_size: tuple[int, int] | None = None,
                 sample.valid, sample.labels, -1).reshape(-1)
             pos_flat = (sample_pos.is_pos & sample_pos.valid).reshape(-1)
 
+        tracing.stage("heads")
         # the mask head's class-gathered final conv: each positive's
         # GT-class channel only
         class_idx = None if is_keypoint else (sample_pos.labels - 1).reshape(-1)
@@ -250,6 +267,9 @@ def make_train_step(cfg: Config, image_size: tuple[int, int] | None = None,
                  + mask_loss)
         counts = torch.stack([sample.valid.sum(),
                               (sample.is_pos & sample.valid).sum()])
+        # the positives carry the mask or keypoint loss, on n_pos_cap slots
+        tracing.count("mask_rois_pos", counts[1])
+        tracing.count("mask_roi_slots", n_pos_cap * b, counts.device)
         return L.LossBreakdown(total, rpn_loc_loss, rpn_cls_loss,
                                roi_loc_loss, roi_cls_loss, mask_loss), counts
 
@@ -283,9 +303,11 @@ def make_train_step(cfg: Config, image_size: tuple[int, int] | None = None,
                 bd, cnt = loss_fn(model, _map(lambda x: x[rows], batch),
                                   SamplerDraws(*(x[rows] for x in draws)),
                                   anchors)
+                tracing.stage("backward")
                 bd.loss.backward()
                 bds.append(torch.stack(bd).detach())
                 counts.append(cnt)
+        tracing.stage("optimizer")
         grads = [p.grad for p in model.parameters() if p.grad is not None]
         if accum > 1:
             torch._foreach_div_(grads, float(accum))
@@ -312,22 +334,26 @@ def make_train_step(cfg: Config, image_size: tuple[int, int] | None = None,
 
     def train_step(state: TrainState, batch: Batch,
                    draws: SamplerDraws | None = None) -> dict:
-        dev = state.model.device
-        anchors, step_count = device_state(dev)
-        batch = to_device(batch, dev)
-        b = batch.images.shape[0]
-        if b % accum != 0:
-            raise ValueError(
-                f"batch {b} not divisible by grad_accum_steps {accum}"
-                + (f" (global batch {cfg.train.batch_size} over {world} "
-                   "ranks: the local batch must split evenly into "
-                   "micro-batches)" if parallel else ""))
-        draws = (draw(state, batch, anchors.shape[0]) if draws is None
-                 else to_device(SamplerDraws(*draws), dev))
-        step_count.fill_(state.step)
-        metrics = body(state, batch, draws, anchors, step_count)
-        advance(state, 1)
-        return metrics
+        with tracing.span("train_call", state.step):
+            dev = state.model.device
+            anchors, step_count = device_state(dev)
+            with tracing.span("train.stage"):
+                batch = to_device(batch, dev)
+            b = batch.images.shape[0]
+            if b % accum != 0:
+                raise ValueError(
+                    f"batch {b} not divisible by grad_accum_steps {accum}"
+                    + (f" (global batch {cfg.train.batch_size} over {world} "
+                       "ranks: the local batch must split evenly into "
+                       "micro-batches)" if parallel else ""))
+            with tracing.span("train.draws"):
+                draws = (draw(state, batch, anchors.shape[0]) if draws is None
+                         else to_device(SamplerDraws(*draws), dev))
+            step_count.fill_(state.step)
+            with tracing.span("train.step"), tracing.stages(dev):
+                metrics = body(state, batch, draws, anchors, step_count)
+            advance(state, 1)
+            return metrics
 
     if chain == 1:
         return train_step
@@ -346,29 +372,38 @@ def make_train_step(cfg: Config, image_size: tuple[int, int] | None = None,
             rows = [train_step(state, _map(lambda x: x[i], batches), pick(i))
                     for i in range(chain)]
             return {key: torch.stack([r[key] for r in rows]) for key in rows[0]}
-        anchors, step_count = device_state(dev)
-        batches = to_device(batches, dev)
-        if draws is None:  # eagerly, in the eager steps' order
-            per_step = [draw(state, batches, anchors.shape[0])
-                        for _ in range(chain)]
-        else:
-            draws = to_device(SamplerDraws(*draws), dev)
-            per_step = [SamplerDraws(*(x[i] for x in draws)) for i in range(chain)]
-        graph = graphs.get(dev)
-        step_count.fill_(state.step)
-        rows = []
-        if graph is None or not graph.captured_for(state):
-            # the chain's first step runs eagerly and warms up the capture
-            graph = graphs[dev] = GraphedStep(
-                body, state, _map(lambda x: x[0], batches), per_step[0],
-                anchors, step_count)
-            rows.append(graph.first_metrics)
-        for i in range(len(rows), chain):
-            graph.replay(_map(lambda x: x[i], batches), per_step[i])
-            # the graph's outputs hold until the next replay: copy them out
-            rows.append({key: v.clone() for key, v in graph.metrics.items()})
-        advance(state, chain)
-        return {key: torch.stack([r[key] for r in rows]) for key in rows[0]}
+        with tracing.span("train_call", state.step):
+            anchors, step_count = device_state(dev)
+            with tracing.span("train.stage"):
+                batches = to_device(batches, dev)
+            with tracing.span("train.draws"):
+                if draws is None:  # eagerly, in the eager steps' order
+                    per_step = [draw(state, batches, anchors.shape[0])
+                                for _ in range(chain)]
+                else:
+                    draws = to_device(SamplerDraws(*draws), dev)
+                    per_step = [SamplerDraws(*(x[i] for x in draws))
+                                for i in range(chain)]
+            graph = graphs.get(dev)
+            step_count.fill_(state.step)
+            rows = []
+            if (graph is None or not graph.captured_for(state)
+                    or graph.traced != tracing.is_on()):
+                graphs.pop(dev, None)  # the last graph's pool goes first
+                # the chain's first step runs eagerly and warms up the capture
+                graph = graphs[dev] = GraphedStep(
+                    body, state, _map(lambda x: x[0], batches), per_step[0],
+                    anchors, step_count)
+                rows.append(graph.first_metrics)
+            for i in range(len(rows), chain):
+                with tracing.span("train.replay", state.step + i):
+                    graph.replay(_map(lambda x: x[i], batches), per_step[i])
+                    # the graph's outputs hold until the next replay: copy
+                    # them out
+                    rows.append({key: v.clone() for key, v in graph.metrics.items()})
+            with tracing.span("train.collect"):
+                advance(state, chain)
+                return {key: torch.stack([r[key] for r in rows]) for key in rows[0]}
 
     return chained
 
@@ -378,7 +413,9 @@ class GraphedStep:
 
     Made by taking one real step eagerly (``first_metrics``) on a side
     stream, then capturing ``body`` on that stream against static copies
-    of the batch and draws. ``replay(batch, draws)`` copies its inputs into
+    of the batch and draws (``capture_s``, the ``capture`` span's seconds;
+    ``traced``, whether tracing was on, when the capture also recorded the
+    stage events, ``stages``, read for each replay). ``replay(batch, draws)`` copies its inputs into
     those buffers and replays, all queued on the current stream behind the
     work before it; ``metrics`` holds the last replay's results until the
     next replay. The launch counters of :data:`KERNELS` rise at capture,
@@ -390,19 +427,25 @@ class GraphedStep:
 
     def __init__(self, body, state: TrainState, batch: Batch,
                  draws: SamplerDraws, anchors, step_count):
-        self.stream = torch.cuda.Stream(device=anchors.device)
-        self.stream.wait_stream(torch.cuda.current_stream(anchors.device))
+        dev = anchors.device
+        self.stream = torch.cuda.Stream(device=dev)
+        self.stream.wait_stream(torch.cuda.current_stream(dev))
         with torch.cuda.stream(self.stream):
-            self.first_metrics = body(state, batch, draws, anchors, step_count)
+            with tracing.span("train.step"), tracing.stages(dev):
+                self.first_metrics = body(state, batch, draws, anchors, step_count)
         self.batch = _map(torch.clone, batch)
         self.draws = SamplerDraws(*(x.clone() for x in draws))
-        self.graph = torch.cuda.CUDAGraph()
-        before = launch_counts()
-        with torch.cuda.graph(self.graph, stream=self.stream):
-            self.metrics = body(state, self.batch, self.draws, anchors,
-                                step_count)
-        self.launches = take_back_launches(before)
-        torch.cuda.current_stream(anchors.device).wait_stream(self.stream)
+        self.traced = tracing.is_on()
+        with tracing.timed("capture", dev) as timed:
+            self.graph = torch.cuda.CUDAGraph()
+            before = launch_counts()
+            with torch.cuda.graph(self.graph, stream=self.stream):
+                with tracing.stages(dev) as self.stages:
+                    self.metrics = body(state, self.batch, self.draws, anchors,
+                                        step_count)
+            self.launches = take_back_launches(before)
+            torch.cuda.current_stream(dev).wait_stream(self.stream)
+        self.capture_s, self.captures, self.replays = timed.seconds, 1, 0
         self.state_id, self.tensors = id(state), self.fingerprint(state)
 
     @staticmethod
@@ -423,5 +466,7 @@ class GraphedStep:
                 static.copy_(x, non_blocking=True)
         for static, x in zip(self.draws, draws):
             static.copy_(x, non_blocking=True)
+        tracing.replaying(self.stages)
         self.graph.replay()
         add_launches(self.launches)
+        self.replays += 1

@@ -1075,3 +1075,141 @@ def test_capture_that_waits_for_the_host_raises(cuda, monkeypatch):
     assert graph.graph is None and graph.replays == 0
     torch.cuda.synchronize()
     assert float(torch.ones(4, device=cuda).sum()) == 4.0
+
+
+def _kernels_of(fn):
+    """Device kernels that ``fn()`` runs, by name: copies, sets and the
+    device-side annotations of the program's spans left out. Read from the
+    second of two profiled calls: the process's first profiled stretch can
+    hold activity of the tracer's own start."""
+    from collections import Counter
+
+    from torch.profiler import ProfilerActivity, profile
+
+    for _ in range(2):
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            fn()
+            torch.cuda.synchronize()
+    return Counter(e.name for e in prof.events()
+                   if e.device_type == torch.autograd.DeviceType.CUDA
+                   and not e.name.startswith(("Memcpy", "Memset", "predict", "capture")))
+
+
+@pytest.mark.parametrize("preset", ["tiny_test", "fpn_mask"])
+def test_traced_replay_equals_untraced_counts_and_times_its_stages(cuda, preset):
+    """With tracing on a request replays a graph of its own, captured with
+    the stage events and counters: its detections equal the untraced
+    replay's and ``predict.eager``'s in every bit, its five stages read
+    positive device ms from the graph's events, and N replays count N times
+    what an eager request counts. The traced graph runs the counters'
+    kernels beyond the untraced one's, as many as an eager request traced
+    runs beyond one untraced. Switching tracing off replays the untraced
+    graph again, with no new capture."""
+    from maskrcnn_tpu_torch.utils import tracing
+
+    _, predict, requests = _graph_setup(cuda, preset, n=3)
+    req = requests[2]
+    try:
+        for r in requests[:2]:  # the untraced graph: warm-up, capture
+            predict(*r)
+        plain = predict(*req)
+        untraced, = predict.graphs.values()
+        plain_kernels = (_kernels_of(lambda: predict(*req)),
+                         _kernels_of(lambda: predict.eager(*req)))
+        replays = untraced.replays
+        tracing.reset()
+        tracing.enable()
+        for r in requests[:2]:  # the traced graph: warm-up, capture
+            predict(*r)
+        assert len(predict.graphs) == 2 and untraced.replays == replays
+        tracing.reset()
+        predict.eager(*req)
+        per_request = tracing.summary()["counters"]
+        assert per_request["detection_slots"] == _graph_cfg(preset).eval.max_detections
+        assert per_request["detections_valid"] > 0
+        tracing.reset()
+        n = 3
+        for _ in range(n):
+            _same(predict(*req), plain)
+        s = tracing.summary()
+        assert s["counters"] == {k: n * v for k, v in per_request.items()}
+        assert s["stage_kinds"] == ["graph"] and s["units"] == n
+        assert list(s["stages_ms"]) == ["backbone", "proposals", "box_head",
+                                        "detections", "mask_head"]
+        assert all(ms > 0 for ms in s["stages_ms"].values())
+        assert s["spans_ms"]["predict.replay"]["n"] == n
+        _same(predict.eager(*req), plain)
+        traced_graph = next(g for key, g in predict.graphs.items() if key[-1])
+        traced_kernels = (_kernels_of(lambda: predict(*req)),
+                          _kernels_of(lambda: predict.eager(*req)))
+        extra = traced_kernels[0] - plain_kernels[0]  # the counters' kernels
+        assert extra and extra == traced_kernels[1] - plain_kernels[1], (
+            extra, traced_kernels[1] - plain_kernels[1], plain_kernels[0] - traced_kernels[0])
+        tracing.disable()
+        captures, replays = untraced.captures, untraced.replays
+        _same(predict(*req), plain)
+        assert (untraced.captures, untraced.replays) == (captures, replays + 1)
+        assert traced_graph.captures == 1 and len(predict.graphs) == 2
+    finally:
+        tracing.disable()
+        tracing.reset()
+
+
+def test_traced_chain_updates_as_the_untraced_one(cuda, monkeypatch):
+    """Two chains of four from one seed, one traced from its capture on:
+    the same parameters and momentum in every bit (deterministic
+    algorithms), six positive stages a replayed step, a capture span, and
+    counters of the replayed steps; switching the flag recaptures."""
+    from maskrcnn_tpu_torch.utils import tracing
+
+    torch.backends.cudnn.allow_tf32 = False
+    cfg = _chain_cfg()
+    data = SyntheticDetectionData(cfg)
+    raw = [data.batch(i) for i in range(4)]
+    stacked = type(raw[0])(*(None if x[0] is None else np.stack(x)
+                             for x in zip(*raw)))
+    made = []
+    init = step_mod.GraphedStep.__init__
+
+    def counted(self, *args):
+        made.append(tracing.is_on())
+        init(self, *args)
+
+    monkeypatch.setattr(step_mod.GraphedStep, "__init__", counted)
+    torch.backends.cudnn.deterministic = True
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    states = []
+    try:
+        for on in (False, True):
+            tracing.reset()
+            (tracing.enable if on else tracing.disable)()
+            state = create_train_state(cfg, MaskRCNN(cfg, seed=0), 1)
+            chained = make_train_step(cfg, chain=4)
+            chained(state, stacked)
+            states.append(({n: t.clone() for n, t in state.model.state_dict().items()},
+                           [state.optimizer.state[p]["momentum_buffer"].clone()
+                            for p in state.model.parameters() if p in state.optimizer.state]))
+        s = tracing.summary()
+        chained(state, stacked)  # traced again: replays only
+        tracing.disable()
+        chained(state, stacked)  # the flag differs from the capture's
+    finally:
+        tracing.disable()
+        tracing.reset()
+        torch.backends.cudnn.deterministic = False
+        torch.use_deterministic_algorithms(False)
+    (plain, plain_momentum), (traced, traced_momentum) = states
+    for name, a in plain.items():
+        assert torch.equal(a, traced[name]), name
+    for a, b in zip(plain_momentum, traced_momentum):
+        assert torch.equal(a, b)
+    assert made == [False, True, False]
+    assert s["spans_ms"]["capture"]["n"] == 1 and s["spans_ms"]["train.replay"]["n"] == 3
+    assert s["stage_kinds"] == ["eager", "graph"] and s["units"] == 4
+    assert list(s["stages_ms"]) == ["forward", "proposals", "targets", "heads",
+                                    "backward", "optimizer"]
+    assert all(ms > 0 for ms in s["stages_ms"].values())
+    assert s["counters"]["mask_roi_slots"] == 4 * 2 * 8  # n_pos_cap 8, b2, 4 steps
+    assert s["counters"]["proposal_slots"] == 4 * 2 * 64
+    assert state.step == 12
