@@ -11,6 +11,10 @@ refined boxes — at the pass-1 ROI's level under ``mask_levels="pass1"`` —
 and runs the class-gathered mask branch, or the keypoint branch, whose
 56×56 heatmap logits come back as they are. Fixed shapes throughout:
 detections live in ``max_detections`` padded slots with a validity mask.
+Where fewer (class, box) pairs survive per-class NMS, by shape, than
+there are slots (the viewer's one class keeps 10 of 100), pass 2 runs the
+head only up to the first slot past them, which stands for every padding
+slot after it (:func:`head_rows`).
 With ``model.dtype="bfloat16"`` the convolutions and dense layers compute
 in bf16 and the pools read bf16 features; the RPN outputs, proposals, NMS,
 box decoding, scores and mask logits stay float32, as in the JAX package.
@@ -30,8 +34,9 @@ spans ``predict`` (its id the function's call count) around
 ``predict.stage``, ``predict.check``, ``predict.replay`` and
 ``predict.clone``; the body marks the device stages ``backbone``,
 ``proposals``, ``box_head``, ``detections`` and ``mask_head`` and counts
-its kept proposals, (class, ROI) pairs entering per-class NMS and valid
-detections against their slots. A request served with tracing on replays
+its kept proposals, (class, ROI) pairs entering per-class NMS, valid
+detections against their slots, and the rows pass 2's head runs on
+(``head_rows``). A request served with tracing on replays
 a graph captured with it on, kept apart from the untraced one.
 """
 
@@ -124,26 +129,49 @@ def image_index(b: int, n: int, device) -> torch.Tensor:
         b, n).reshape(b * n)
 
 
+def head_rows(d: int, n_kept: int) -> int:
+    """The detection slots of an image that pass 2 computes: all ``d``, or,
+    where only ``n_kept < d`` (class, box) pairs survive per-class NMS, the
+    first ``n_kept + 1``. Slot ``n_kept`` is then padding in every request
+    (at most ``n_kept`` scores are finite), and so is every slot after it,
+    each the same detection: ``merge_top``'s first kept pair of class 0."""
+    return d if n_kept >= d else n_kept + 1
+
+
 def predict_masks(cfg: Config, model: MaskRCNN, roi_feats, det_boxes,
-                  det_labels, det_levels):
+                  det_labels, det_levels, rows: int):
     """Pass 2: (B, D) detections → (masks, heatmaps): (B, D, S, S) sigmoid
     mask probs of each detection's class (S = 28 for the FPN mask head, 14
     for the light and Res5 heads) and None, or None and (B, D, 56, 56, K)
     heatmap logits for the keypoint head. ``roi_feats`` is
-    ``model.roi_features(features)``."""
+    ``model.roi_features(features)``. The head runs on each image's first
+    ``rows`` slots (:func:`head_rows`); with ``rows < D`` the last of them
+    fills the slots after it."""
     b, d = det_boxes.shape[:2]
-    flat_boxes = det_boxes.reshape(b * d, 4)
+    if rows < d:
+        det_boxes, det_labels, det_levels = (
+            t[:, :rows] for t in (det_boxes, det_labels, det_levels))
+    flat_boxes = det_boxes.reshape(b * rows, 4)
     if cfg.eval.mask_levels == "pass1":
-        flat_levels = det_levels.reshape(b * d)
+        flat_levels = det_levels.reshape(b * rows)
     else:
         flat_levels = map_rois_to_fpn_levels(flat_boxes, 0, len(roi_feats) - 1)
-    flat_bi = image_index(b, d, det_boxes.device)
+    flat_bi = image_index(b, rows, det_boxes.device)
     if cfg.model.head == "fpn_keypoint":
         heat = model.head_mask(roi_feats, flat_boxes, flat_bi, flat_levels)
-        return None, heat.reshape(b, d, *heat.shape[1:])
+        return None, _fill_slots(heat.reshape(b, rows, *heat.shape[1:]), d)
     logits = model.head_mask(roi_feats, flat_boxes, flat_bi, flat_levels,
-                             det_labels.reshape(b * d))
-    return torch.sigmoid(logits).reshape(b, d, *logits.shape[1:]), None
+                             det_labels.reshape(b * rows))
+    masks = torch.sigmoid(logits).reshape(b, rows, *logits.shape[1:])
+    return _fill_slots(masks, d), None
+
+
+def _fill_slots(out: torch.Tensor, d: int) -> torch.Tensor:
+    """(B, rows, ...) → (B, d, ...), the last row repeated into the rest."""
+    b, rows = out.shape[:2]
+    if rows == d:
+        return out
+    return torch.cat([out, out[:, -1:].expand(b, d - rows, *out.shape[2:])], 1)
 
 
 def make_predict_fn(cfg: Config, model: MaskRCNN, image_size=None):
@@ -209,9 +237,11 @@ def make_predict_fn(cfg: Config, model: MaskRCNN, image_size=None):
         tracing.count("nms_candidates", cls_valid)
         tracing.count("detections_valid", det_valid)
         tracing.count("detection_slots", det_valid.numel(), dev)
+        rows = head_rows(d, keep_idx.shape[1] * keep_idx.shape[2])
+        tracing.count("head_rows", b * rows, dev)
         tracing.stage("mask_head")
         masks, heatmaps = predict_masks(cfg, model, roi_feats, det_boxes,
-                                        det_labels, det_levels)
+                                        det_labels, det_levels, rows)
         return Detections(det_boxes, det_scores, det_labels, det_valid, masks,
                           heatmaps)
 

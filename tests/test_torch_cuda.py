@@ -936,11 +936,16 @@ def test_chain_counters_count_replays(cuda):
 
 def _graph_cfg(preset, dtype="float32", roi_align="auto"):
     """A request small enough for a test: ``tiny_test`` at its own 128×160,
-    ``fpn_mask`` at 256×320 with 3 classes; b1."""
+    ``darknet_keypoint`` at its own 256×320 (one class keeping 10 boxes:
+    pass 2 runs on 11 of the 100 slots), ``fpn_mask`` at 256×320 with 3
+    classes; b1."""
     model = dict(dtype=dtype, roi_align=roi_align)
     if preset == "tiny_test":
         return cfg_lib._rep(cfg_lib.tiny_test(), model=model,
                             train=dict(batch_size=1, image_size=(128, 160)))
+    if preset == "darknet_keypoint":
+        return cfg_lib._rep(cfg_lib.darknet_keypoint(), model=model,
+                            train=dict(batch_size=1, image_size=(256, 320)))
     return cfg_lib._rep(
         cfg_lib.fpn_mask(), model=dict(n_fg_class=3, **model),
         proposals=dict(n_test_pre_nms=512, n_test_post_nms=64),
@@ -966,10 +971,12 @@ def _same(got, want):
 
 
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
-@pytest.mark.parametrize("preset", ["tiny_test", "fpn_mask"])
+@pytest.mark.parametrize("preset", ["tiny_test", "fpn_mask", "darknet_keypoint"])
 def test_graphed_predict_equals_eager_bit_for_bit(cuda, preset, dtype):
     """The warm-up, the capture's first replay and later replays each equal
-    ``predict.eager`` on the same request in every bit."""
+    ``predict.eager`` on the same request in every bit; on
+    ``darknet_keypoint`` with pass 2 on 11 rows and its last row filling
+    the 89 padding slots after them."""
     _, predict, requests = _graph_setup(cuda, preset, dtype)
     for req in requests:
         det = predict(*req)
@@ -977,6 +984,10 @@ def test_graphed_predict_equals_eager_bit_for_bit(cuda, preset, dtype):
     graph, = predict.graphs.values()
     assert (graph.captures, graph.replays) == (1, len(requests) - 1)
     assert det.valid.any()
+    if preset == "darknet_keypoint":
+        heat = det.heatmaps
+        assert heat.shape == (1, 100, 56, 56, 20) and not det.valid[:, 10:].any()
+        assert torch.equal(heat[:, 10:], heat[:, 10:11].expand_as(heat[:, 10:]))
 
 
 def test_first_call_warms_up_second_captures_third_replays(cuda):
