@@ -11,6 +11,8 @@ seed).batch(i)`` is a pure function of ``(seed, i)``.
 
 from __future__ import annotations
 
+import importlib.util
+from pathlib import Path
 from typing import NamedTuple
 
 import numpy as np
@@ -116,13 +118,25 @@ class Synthetic:
         )
 
 
+def class_score_names(weights: dict) -> tuple[str, str]:
+    """The class-score layer's (weight, bias) names: the one parameter
+    under ``head.`` whose name ends in ``score.weight`` (the FPN heads'
+    ``head.box.score.weight``, the C4 heads' ``head.score.weight``) and its
+    ``score.bias``. Raises unless there is exactly one."""
+    found = [name for name in weights
+             if name.startswith("head.") and name.endswith("score.weight")]
+    if len(found) != 1:
+        raise KeyError(f"want one class-score layer under head., found {found}")
+    return found[0], found[0][:-len("weight")] + "bias"
+
+
 def spread_class_scores(weights: dict, scale: float = 8.0) -> dict:
     """The class-score layer's weights scaled by ``scale`` in place. At
     random init the class logits spread by about 0.25, so every class scores
     near 1/81, under the 0.05 threshold; scaled by 8 enough (ROI, class)
     pairs pass to fill every one of the ``max_detections`` slots. A chosen
     load, not a property of trained weights."""
-    weights["head.box.score.weight"].mul_(scale)
+    weights[class_score_names(weights)[0]].mul_(scale)
     return weights
 
 
@@ -131,7 +145,7 @@ def visualize_load(weights: dict) -> dict:
     class's bias raised by 2: a chosen load under the ``visualize`` preset's
     0.7 threshold, which a spread of 8 does not clear."""
     spread_class_scores(weights, 32.0)
-    weights["head.box.score.bias"][1:] += 2.0
+    weights[class_score_names(weights)[1]][1:] += 2.0
     return weights
 
 
@@ -141,9 +155,25 @@ def visualize_fill(weights: dict) -> dict:
     proposals over the 0.7 threshold in every request, where the +2 of
     :func:`visualize_load` leaves many requests with none."""
     visualize_load(weights)
-    weights["head.box.score.bias"][1:] += 2.0
+    weights[class_score_names(weights)[1]][1:] += 2.0
     return weights
 
 
 LOADS = {"spread_class_scores": spread_class_scores,
          "visualize_load": visualize_load, "visualize_fill": visualize_fill}
+LOADS_DIR = Path(__file__).resolve().parent / "loads"
+
+
+def chosen_load(name: str):
+    """The chosen load ``name``: one of :data:`LOADS`, or the ``apply`` of
+    ``benchmark/loads/<name>.py``, which a configuration that needs a load
+    of its own brings as a file."""
+    if name in LOADS:
+        return LOADS[name]
+    path = LOADS_DIR / f"{name}.py"
+    if not path.exists():
+        raise KeyError(f"no chosen load {name!r} in LOADS and no file {path}")
+    module_spec = importlib.util.spec_from_file_location(f"benchmark_load_{name}", path)
+    module = importlib.util.module_from_spec(module_spec)
+    module_spec.loader.exec_module(module)
+    return module.apply

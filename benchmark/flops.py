@@ -102,14 +102,24 @@ def train_step_flops(cfg) -> int:
     return _count(step)
 
 
+def head_rows(cfg) -> int:
+    """The detection slots of a batch-1 request that pass 2 runs its head
+    on: all ``max_detections`` = d, or, where per-class NMS keeps only
+    ``n_kept`` = n_fg · min(n_test_post_nms, d) < d (class, box) pairs,
+    the first ``n_kept + 1``: the rest are copies of one padding slot."""
+    d = cfg.eval.max_detections
+    n_kept = cfg.model.n_fg_class * min(cfg.proposals.n_test_post_nms, d)
+    return d if n_kept >= d else n_kept + 1
+
+
 def request_flops(cfg) -> int:
     """One batch-1 request: backbone and RPN, the box branch on the
     ``n_test_post_nms`` proposal slots, the mask or keypoint branch on the
-    ``max_detections`` slots."""
+    :func:`head_rows` rows of the ``max_detections`` slots."""
     model = MaskRCNN(cfg, device="meta")
     h, w = cfg.train.image_size
     r = cfg.proposals.n_test_post_nms
-    d = cfg.eval.max_detections
+    d = head_rows(cfg)
     keypoint = cfg.model.head == "fpn_keypoint"
 
     def request():

@@ -1,7 +1,8 @@
-"""The share of padded work that is real: valid detections over the detection
-slots every request computes pass 2 on (``max_detections``), from the
-program's counters over the spanned stretch (``benchmark/spans.py``). None
-without the program's tracer or a card."""
+"""The share of the detection slots that hold a detection: valid detections
+over the slots a request returns (``max_detections``), from the program's
+counters over the spanned stretch (``benchmark/spans.py``). Pass 2 runs its
+head on the ``head_rows`` rows of those slots, not on every slot
+(``head_row_share.serve``). None without the program's tracer or a card."""
 
 from benchmark import spans
 

@@ -1,6 +1,7 @@
 """The Mask R-CNN facade in plain torch: backbone + RPN + ROI heads for the
 FPN backbone with the FPN mask or keypoint head and the Darknet backbone
-with the keypoint head. The pools are :mod:`benchmark.reference.roi_align`'s
+with the keypoint head; any other head comes from a module of its own,
+``heads_<head>.py`` beside this one (:func:`build_head`). The pools are :mod:`benchmark.reference.roi_align`'s
 (the region form on a pyramid, the pointwise form on one level), trained
 through autograd. Features
 travel between stages as ``(B, H, W, C)`` views of the channels_last NCHW
@@ -9,6 +10,9 @@ the constructor leaves the layers as torch made them.
 """
 
 from __future__ import annotations
+
+import importlib
+import importlib.util
 
 import torch
 from torch import nn
@@ -55,6 +59,10 @@ def pyramid_shapes(cfg: Config, image_size) -> list[tuple[int, int]]:
 
 
 def build_head(cfg: Config, dtype: torch.dtype) -> nn.Module:
+    """The configuration's ROI heads: the FPN mask or keypoint head, or for
+    any other ``model.head`` the ``build(cfg, width, dtype)`` of the module
+    ``benchmark/reference/heads_<head>.py``, which a configuration that
+    needs such a head brings as a file of its own."""
     m = cfg.model
     width = backbone_channels(cfg)
     if m.head == "fpn":
@@ -62,7 +70,11 @@ def build_head(cfg: Config, dtype: torch.dtype) -> nn.Module:
     if m.head == "fpn_keypoint":
         return FPNKeypointHead(m.n_class, m.n_keypoints, m.n_mask_convs,
                                width, dtype, m.kp_upsample)
-    raise ValueError(f"unknown head {m.head!r}")
+    name = f"heads_{m.head}"
+    if importlib.util.find_spec(f"{__package__}.{name}") is None:
+        raise ValueError(f"unknown head {m.head!r}: no reference head module "
+                         f"benchmark/reference/{name}.py")
+    return importlib.import_module(f"{__package__}.{name}").build(cfg, width, dtype)
 
 
 class MaskRCNN(nn.Module):
@@ -106,8 +118,11 @@ class MaskRCNN(nn.Module):
         return self.rpn_head([f.permute(0, 3, 1, 2) for f in features])
 
     def roi_features(self, features):
-        """The maps the ROI heads pool from: the backbone's levels."""
-        return features
+        """The maps the ROI heads pool from: the backbone's levels, or what
+        the head makes of them where it has a ``roi_features`` of its own
+        (a head brought by file, such as Light-Head's thin map)."""
+        own = getattr(self.head, "roi_features", None)
+        return features if own is None else own(features)
 
     def pool(self, roi_feats, rois, roi_batch_idx, roi_levels, out_size):
         """Batched multilevel ROIAlign over flattened (B·R,) ROI slots."""

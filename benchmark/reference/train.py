@@ -57,10 +57,13 @@ def train_anchors(cfg: Config, device) -> torch.Tensor:
                            device=device)
 
 
-def losses(cfg: Config, model: MaskRCNN, batch, draws: Draws, anchors):
+def losses(cfg: Config, model: MaskRCNN, batch, draws: Draws, anchors,
+           counted: bool = False):
     """→ (total, (rpn_loc, rpn_cls, roi_loc, roi_cls, mask), Chosen) for
     one batch of device tensors (``batch`` has the fields of a train
-    batch)."""
+    batch); with ``counted``, also each term's valid count, the
+    denominator it divided by (before its floor of 1), as a (5,) float
+    tensor."""
     n_levels = len(pyramid_shapes(cfg, cfg.train.image_size))
     n_pos_cap = int(round(cfg.sampler.n_sample * cfg.sampler.pos_ratio))
     is_keypoint = cfg.model.head == "fpn_keypoint"
@@ -120,8 +123,43 @@ def losses(cfg: Config, model: MaskRCNN, batch, draws: Draws, anchors):
         mask = L.sigmoid_mask_loss(roi_masks, targets.reshape(-1, m, m),
                                    sample_pos.labels.reshape(-1), pos_flat)
     parts = (rpn_loc, rpn_cls, roi_loc, roi_cls, mask)
-    return sum(parts), parts, Chosen(props.rois, props.valid, sample.rois,
-                                     sample.valid)
+    chosen = Chosen(props.rois, props.valid, sample.rois, sample.valid)
+    if not counted:
+        return sum(parts), parts, chosen
+    n_anchors = (at.labels >= 0).sum()
+    n_rois = (cls_labels >= 0).sum()
+    if is_keypoint:
+        labelled = torch.where(pos_flat[:, None], targets.reshape(-1, targets.shape[-1]), -1)
+        n_mask = (labelled >= 0).sum()
+    else:
+        n_mask = pos_flat.sum()
+    counts = torch.stack([n_anchors, n_anchors, n_rois, n_rois, n_mask]).float()
+    return sum(parts), parts, chosen, counts
+
+
+def global_losses(cfg: Config, model: MaskRCNN, batch, draws: Draws, anchors,
+                  blocks: int):
+    """The batch's loss in ``blocks`` blocks of its rows, as data-parallel
+    ranks take it: each block's terms from its own forward, each term over
+    the valid count summed over the blocks (so the sum is the whole batch's
+    loss and its gradient the whole batch's) → (total, Chosen of every
+    row). A block's term is its own count's mean, so its weight is its
+    count over the sum of the counts."""
+    rows = batch.images.shape[0] // blocks
+    parts, counts, chosen = [], [], []
+    for i in range(blocks):
+        sl = slice(i * rows, (i + 1) * rows)
+        _, p, c, n = losses(cfg, model, type(batch)(*(None if x is None else x[sl]
+                                                      for x in batch)),
+                            Draws(draws.proposal[sl], draws.anchor[sl]), anchors,
+                            counted=True)
+        parts.append(torch.stack(p))
+        chosen.append(c)
+        counts.append(n)
+    counts = torch.stack(counts)
+    weights = counts.clamp(min=1.0) / counts.sum(dim=0).clamp(min=1.0)
+    total = (torch.stack(parts) * weights).sum()
+    return total, Chosen(*(torch.cat(x) for x in zip(*chosen)))
 
 
 class Trainer:
@@ -162,16 +200,22 @@ class Trainer:
         t = self.cfg.train
         return t.lr * t.lr_decay_factor ** (self.step_count // t.lr_decay_period)
 
-    def step(self, batch) -> float:
-        """One step on ``batch`` (device tensors) → the total loss."""
+    def step(self, batch, blocks: int = 1) -> float:
+        """One step on ``batch`` (device tensors) → the total loss; with
+        ``blocks`` > 1 the loss is taken in blocks of rows
+        (:func:`global_losses`), as that many data-parallel ranks take it."""
         b, n_gt = batch.gt_boxes.shape[:2]
         draws = draw(self.cfg, self.generator, b, n_gt, self.anchors.shape[0],
                      self.model.device)
         for p in self.params:
             p.grad = None
         with torch.enable_grad():
-            total, _, self.chosen = losses(self.cfg, self.model, batch, draws,
-                                           self.anchors)
+            if blocks == 1:
+                total, _, self.chosen = losses(self.cfg, self.model, batch, draws,
+                                               self.anchors)
+            else:
+                total, self.chosen = global_losses(self.cfg, self.model, batch,
+                                                   draws, self.anchors, blocks)
             total.backward()
         t = self.cfg.train
         lr = torch.tensor(self.lr(), dtype=torch.float32, device=self.model.device)

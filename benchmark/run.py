@@ -63,6 +63,8 @@ class Run:
         self.window_open = None
         self.reserved_peak = 0
         self.phases = {}
+        self.fault = None  # a fault that benchmark.control plants in a rank
+        self.forbidden_elsewhere = set()  # what the run's other processes loaded
 
     def mark(self, phase: str):
         """Record when a phase of set-up ended, in seconds from the start
@@ -126,7 +128,8 @@ def execute(run: Run) -> dict:
             "device": {"memory_peak_bytes": run.reserved_peak}}
     if run.trace:
         graphed = result["readings"].graphed
-        line["device"].update(busy_s=graphed.busy_s(), window_s=graphed.wall_s)
+        busy_s = result.get("busy_s") or graphed.busy_s()  # over the ranks
+        line["device"].update(busy_s=busy_s, window_s=graphed.wall_s)
         line["breakdown"] = result["breakdown"]
     line["checked"] = {**result["checked"], "setup_phases": run.phases}
     line["compared"] = {name: {"value": value, "limit": limit}
@@ -152,9 +155,9 @@ def main(argv=None):
     torch.backends.cuda.matmul.allow_tf32 = bool(run.config.get("tf32", False))
     torch.backends.cudnn.allow_tf32 = bool(run.config.get("tf32", False))
     line = execute(run)
-    found = forbidden_modules()
+    found = sorted(set(forbidden_modules()) | run.forbidden_elsewhere)
     if found:
-        print(f"benchmark: loaded in this process: {', '.join(found)}",
+        print(f"benchmark: loaded in this process or its ranks: {', '.join(found)}",
               file=sys.stderr)
         sys.exit(2)
     line["device"] = {"platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -29,12 +29,16 @@ def benchmark() -> dict:
 
 
 def workload(name: str) -> dict:
-    """The cell's entry of ``BENCHMARK.json`` joined with its own file."""
+    """The cell's entry of ``BENCHMARK.json`` joined with its own file; for
+    a cell held out of ``BENCHMARK.json`` (PERF.md §7), whose file carries
+    the entry's ``config``, ``traffic`` and ``chips`` itself, the file."""
     spec = benchmark()
     entries = [w for w in spec["workloads"] if w["name"] == name]
-    if not entries:
+    path = HERE / "workloads" / f"{name}.json"
+    held = load_json(path) if not entries and path.exists() else {}
+    if not entries and "traffic" not in held:
         raise SystemExit(f"benchmark: no workload {name!r} in BENCHMARK.json")
-    return {**entries[0], **load_json(HERE / "workloads" / f"{name}.json")}
+    return {**(entries[0] if entries else {"name": name}), **load_json(path)}
 
 
 def config_file(name: str) -> dict:

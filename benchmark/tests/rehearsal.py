@@ -20,12 +20,16 @@ SMALL = {
                        "sampler": {"n_sample": 32},
                        "anchor_targets": {"n_sample": 64}},
 }
+SMALL["fpn_mask-train-dp4"] = SMALL["fpn_mask-train"]
 PARAMS = {
     "fpn_mask-serve": {"sample": 2, "sample_from": 2, "trace_requests": 2,
                        "eager_requests": 1, "warmup": 1},
     "darknet_keypoint-serve": {"sample": 2, "sample_from": 2, "trace_requests": 2,
                                "eager_requests": 1, "warmup": 1},
     "fpn_mask-train": {"chain": 2, "batches": 3},
+    # two ranks of one image each: gloo on the CPU, NCCL on two cards
+    "fpn_mask-train-dp4": {"ranks": 2, "global_batch": 2, "batches": 2,
+                           "warmup_steps": 2, "eager_steps": 1},
 }
 
 

@@ -21,6 +21,9 @@ class Trace(NamedTuple):
     wall_s: float  # the stretch on the host's clock, synchronised at both ends
     units: int  # requests or steps in the stretch
     untraced_wall_s: float  # the same work just before, untraced
+    annotations: tuple = ()  # (name, start_us, end_us) of the entries of
+    #   ``device`` that are the profiler's device-side copies of host
+    #   ranges (``nccl:all_reduce`` and the like), not device work
 
     def busy_s(self) -> float:
         """Seconds in which some device activity ran: the union of their
@@ -62,10 +65,12 @@ def record(work, units: int) -> Trace:
         work()
         sync()
         wall = time.perf_counter() - t0
-    device, host, kernels = [], [], []
+    device, host, kernels, annotations = [], [], [], []
     for e in prof.events():
         if e.device_type == torch.autograd.DeviceType.CUDA:
             device.append((e.name, e.time_range.start, e.time_range.end))
+            if getattr(e, "is_user_annotation", False):
+                annotations.append(device[-1])
             continue
         if e.is_async:
             continue
@@ -76,7 +81,7 @@ def record(work, units: int) -> Trace:
                 names.append(parent.name)
                 parent = parent.cpu_parent
             kernels.extend((k.name, k.duration, tuple(names)) for k in e.kernels)
-    return Trace(device, host, kernels, wall, units, untraced)
+    return Trace(device, host, kernels, wall, units, untraced, tuple(annotations))
 
 
 def breakdown(trace: Trace, top: int = 10) -> dict:

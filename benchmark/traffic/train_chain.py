@@ -52,6 +52,16 @@ def feeds(run, params):
             for c in range(period)], batches
 
 
+def reference_inputs(run):
+    """What the reference's steps take: (its configuration, the batches,
+    the first steps of the first call that it follows, the blocks of rows
+    it takes a batch's loss in)."""
+    params = run.work["params"]
+    _, batches = feeds(run, params)
+    return (run.reference_config(), batches,
+            min(params["steps_compared"], params["chain"]), 1)
+
+
 def generator_seed(seed: int) -> int:
     return seed % (2**63 - 1) + 1
 
@@ -197,10 +207,10 @@ def steps_of(states: list, losses: list, rcfg) -> dict:
     return {"losses": list(losses), "grads": grads, "changes": changes}
 
 
-def reference_step(run, rcfg, model, batch, before: dict, i: int):
+def reference_step(run, rcfg, model, batch, before: dict, i: int, blocks: int = 1):
     """The reference's step ``i + 1`` on ``batch`` (host arrays) from the
-    state ``before`` → (loss, gradient, change, state after, Chosen), on
-    the model's device."""
+    state ``before``, its loss taken in ``blocks`` blocks of rows → (loss,
+    gradient, change, state after, Chosen), on the model's device."""
     from benchmark.reference.train import Trainer
 
     dev = model.device
@@ -208,7 +218,7 @@ def reference_step(run, rcfg, model, batch, before: dict, i: int):
     trainer = Trainer(rcfg, model, generator_seed(run.seed))
     trainer.resume(before["params"], before["momentum"], i,
                    *batch.gt_boxes.shape[:2])
-    loss = trainer.step(batch)
+    loss = trainer.step(batch, blocks)
     named = list(model.named_parameters())
     grad = {n: p.grad.detach().clone() for n, p in named if p.grad is not None}
     after = {"params": {n: p.detach().clone() for n, p in named},
@@ -217,7 +227,7 @@ def reference_step(run, rcfg, model, batch, before: dict, i: int):
     return loss, grad, change, after, trainer.chosen
 
 
-def trajectory(run, rcfg, batches, n: int, tf32: bool = False) -> dict:
+def trajectory(run, rcfg, batches, n: int, tf32: bool = False, blocks: int = 1) -> dict:
     """The reference on its own through ``n`` steps from the seed, as a
     run records the program's first steps: {losses, states after each}."""
     from benchmark.reference.maskrcnn import MaskRCNN
@@ -228,17 +238,18 @@ def trajectory(run, rcfg, batches, n: int, tf32: bool = False) -> dict:
     with compare.tf32(tf32):
         for i in range(n):
             loss, _, _, state, _ = reference_step(
-                run, rcfg, model, batches[i % len(batches)], state, i)
+                run, rcfg, model, batches[i % len(batches)], state, i, blocks)
             losses.append(loss)
             states.append(state)
     return {"losses": losses, "states": states}
 
 
-def check(run, rcfg, batches, program: dict) -> tuple[dict, dict]:
+def check(run, rcfg, batches, program: dict, blocks: int = 1) -> tuple[dict, dict]:
     """``program``'s steps ({losses, states after each}, the program's or
     a control's) against the reference's, step 1 from the seed and each
-    later one from ``program``'s own state before it → (numbers, what is
-    reported beside them)."""
+    later one from ``program``'s own state before it, each batch's loss
+    taken in ``blocks`` blocks of rows → (numbers, what is reported beside
+    them)."""
     from benchmark.reference.maskrcnn import MaskRCNN
 
     dev = torch.device(run.device)
@@ -250,7 +261,7 @@ def check(run, rcfg, batches, program: dict) -> tuple[dict, dict]:
     reference = {"losses": [], "grads": [], "changes": []}
     for i, before in enumerate(states[:-1]):
         loss, grad, change, after, chosen = reference_step(
-            run, rcfg, model, batches[i % len(batches)], before, i)
+            run, rcfg, model, batches[i % len(batches)], before, i, blocks)
         reference["losses"].append(loss)
         reference["grads"].append(grad)
         reference["changes"].append(change)
@@ -261,7 +272,7 @@ def check(run, rcfg, batches, program: dict) -> tuple[dict, dict]:
     numbers, beside = compare.train_numbers(mine, reference)
     if len(states) > 2:
         loss, grad, _, _, chosen = reference_step(run, rcfg, model, batches[1 % len(batches)],
-                                                  own, 1)
+                                                  own, 1, blocks)
         beside["free_step_2"] = compare.parting(
             mine["losses"][1], mine["grads"][1], loss, grad, forced, chosen)
     return numbers, beside

@@ -18,7 +18,7 @@ import math
 import torch
 from torch import nn
 
-from benchmark.data import LOADS
+from benchmark.data import chosen_load
 from benchmark.reference.maskrcnn import MaskRCNN
 
 # std of a unit normal truncated to [-2, 2]
@@ -44,7 +44,8 @@ def _fan_ins(model: nn.Module) -> dict:
 def make_weights(ref_cfg, seed: int, device, load: str | None = None) -> dict:
     """Parameter name → float32 tensor on ``device`` for every parameter of
     the configuration's model, with the chosen ``load`` (a name in
-    :data:`benchmark.data.LOADS`) applied."""
+    :data:`benchmark.data.LOADS`, or of a file under ``benchmark/loads/``)
+    applied."""
     shell = MaskRCNN(ref_cfg, device="meta")
     fan = _fan_ins(shell)
     params = dict(shell.named_parameters())
@@ -64,7 +65,7 @@ def make_weights(ref_cfg, seed: int, device, load: str | None = None) -> dict:
             init = torch.ones if name.endswith("weight") else torch.zeros
             weights[name] = init(p.shape, device=device)
     if load is not None:
-        LOADS[load](weights)
+        chosen_load(load)(weights)
     return weights
 
 
