@@ -35,9 +35,12 @@ spans ``predict`` (its id the function's call count) around
 ``predict.clone``; the body marks the device stages ``backbone``,
 ``proposals``, ``box_head``, ``detections`` and ``mask_head`` and counts
 its kept proposals, (class, ROI) pairs entering per-class NMS, valid
-detections against their slots, and the rows pass 2's head runs on
-(``head_rows``). A request served with tracing on replays
-a graph captured with it on, kept apart from the untraced one.
+detections against their slots, the rows pass 2's head runs on
+(``head_rows``), and the convolution problems first seen with cuDNN's
+timing on and off (``conv_problems_tuned``/``_untuned``; an eager request
+times each new problem, so the second counts none). A request served with
+tracing on replays a graph captured with it on, kept apart from the
+untraced one.
 """
 
 from __future__ import annotations
@@ -51,6 +54,7 @@ import torch
 
 from maskrcnn_tpu_torch.config import Config
 from maskrcnn_tpu_torch.kernels import add_launches, launch_counts, take_back_launches
+from maskrcnn_tpu_torch.models.layers import tuned_convolutions
 from maskrcnn_tpu_torch.models.maskrcnn import (
     MaskRCNN,
     backbone_geometry,
@@ -248,7 +252,7 @@ def make_predict_fn(cfg: Config, model: MaskRCNN, image_size=None):
     calls = itertools.count()  # the requests' ids
 
     def serve_eager(images, img_hw, scale) -> Detections:
-        with tracing.stages(dev):
+        with tracing.stages(dev), tuned_convolutions():
             return body(*request_tensors(images, img_hw, scale, dev))
 
     @torch.inference_mode()
@@ -315,8 +319,10 @@ class GraphedPredict:
     """One request signature's predict as a ``torch.cuda.CUDAGraph``.
 
     ``warm_up(inputs)`` serves the signature's first request eagerly on a
-    side stream: cuBLAS, cuDNN, the kernels' libraries, the allocator and
-    the device constants are set up there before anything is captured.
+    side stream: cuBLAS, cuDNN (timing each convolution problem's engines,
+    :func:`maskrcnn_tpu_torch.models.layers.tuned_convolutions`), the
+    kernels' libraries, the allocator and the device constants are set up
+    there before anything is captured.
     ``capture(model)`` records ``body`` on that stream against static
     input buffers, in a memory pool of the graph's own (``reserved_bytes``,
     ``capture_s``, the ``capture`` span's seconds). With tracing on, the
@@ -367,7 +373,7 @@ class GraphedPredict:
         self.stream.wait_stream(current)
         with torch.cuda.stream(self.stream):
             self._stage(inputs)
-            with tracing.stages(self.device):
+            with tracing.stages(self.device), tuned_convolutions():
                 det = self.body(*self.static)
         current.wait_stream(self.stream)
         for t in det:

@@ -6,13 +6,24 @@ The parameters stay float32; each call casts its input, weight and bias to
 ``torch.autocast``, whose per-op policy would run the BatchNorms and the
 residual adds in float32 where the JAX package rounds to bf16 after each.
 At float32 every cast is a no-op.
+
+cuDNN chooses the engine of each convolution problem (the forward, and the
+dgrad and wgrad of its backward) the first time it sees the problem, and
+keeps it for every later call. Inside :func:`tuned_convolutions` it times
+its candidates and keeps the fastest; outside, it takes the one its
+heuristics rank first. The paths that replay a CUDA graph open the scope
+around the eager pass that comes before the capture.
 """
 
 from __future__ import annotations
 
+import contextlib
+
 import torch
 from torch import nn
 from torch.nn import functional as F
+
+from maskrcnn_tpu_torch.utils import tracing
 
 DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 
@@ -29,6 +40,45 @@ def _cast(p, dt):
     return None if p is None else p.to(dt)
 
 
+# How many of its heuristics' candidates cuDNN times for a problem (its
+# default is 10). On an H100's float32 ResNet-50-FPN train step, 4 run
+# within 3% of the default's step time and add a fifth or less of the
+# 24-26 s of set-up that the default adds.
+BENCHMARK_LIMIT = 4
+
+
+@contextlib.contextmanager
+def tuned_convolutions():
+    """cuDNN times each convolution problem first run inside this scope,
+    forward, dgrad and wgrad, and caches the fastest engine for it
+    (``torch.backends.cudnn.benchmark`` on, ``benchmark_limit`` at
+    :data:`BENCHMARK_LIMIT`; both restored on exit, and no other flag
+    touched). The cache is keyed by the problem and not by the flags, so a
+    graph captured afterwards, and every later call, runs the timed engine,
+    and nothing is timed inside a capture."""
+    cudnn = torch.backends.cudnn
+    before = cudnn.benchmark, cudnn.benchmark_limit
+    cudnn.benchmark, cudnn.benchmark_limit = True, BENCHMARK_LIMIT
+    try:
+        yield
+    finally:
+        cudnn.benchmark, cudnn.benchmark_limit = before
+
+
+def _count_problem(x, weight, *geometry):
+    """With tracing on: a forward convolution problem seen for the first time
+    counts as ``conv_problems_tuned`` where cuDNN times it (inside
+    :func:`tuned_convolutions`), else ``conv_problems_untuned``."""
+    if not tracing.is_on():
+        return
+    layout = (torch.channels_last if x.is_contiguous(memory_format=torch.channels_last)
+              else torch.contiguous_format)
+    key = (tuple(x.shape), tuple(weight.shape), *geometry, x.dtype, layout)
+    name = ("conv_problems_tuned" if torch.backends.cudnn.benchmark
+            else "conv_problems_untuned")
+    tracing.count_first(name, key, x.device)
+
+
 class Conv2d(nn.Conv2d):
     def __init__(self, *args, compute_dtype=torch.float32, **kwargs):
         super().__init__(*args, **kwargs)
@@ -36,8 +86,10 @@ class Conv2d(nn.Conv2d):
 
     def forward(self, x):
         dt = self.compute_dtype
-        return self._conv_forward(x.to(dt), self.weight.to(dt),
-                                  _cast(self.bias, dt))
+        x, weight = x.to(dt), self.weight.to(dt)
+        _count_problem(x, weight, "conv", self.stride, self.padding,
+                       self.dilation, self.groups)
+        return self._conv_forward(x, weight, _cast(self.bias, dt))
 
 
 class ConvTranspose2d(nn.ConvTranspose2d):
@@ -47,8 +99,10 @@ class ConvTranspose2d(nn.ConvTranspose2d):
 
     def forward(self, x):
         dt = self.compute_dtype
-        return F.conv_transpose2d(x.to(dt), self.weight.to(dt),
-                                  _cast(self.bias, dt), self.stride,
+        x, weight = x.to(dt), self.weight.to(dt)
+        _count_problem(x, weight, "transposed", self.stride, self.padding,
+                       self.output_padding, self.dilation, self.groups)
+        return F.conv_transpose2d(x, weight, _cast(self.bias, dt), self.stride,
                                   self.padding, self.output_padding,
                                   self.groups, self.dilation)
 

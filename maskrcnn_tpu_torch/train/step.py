@@ -39,9 +39,11 @@ captured into a CUDA graph, which is what chained dispatch does
 one call runs K optimizer steps, exactly K sequential steps. On the CPU
 the chained step is a Python loop of the step; on the card the first call
 takes its first step eagerly (a step of the run, which warms up cuBLAS,
-cuDNN, the momentum buffers and the gradients' memory), captures one step
-into a ``torch.cuda.CUDAGraph`` that reads its batch and its sampler draws
-from static device buffers, and replays it for the rest; later calls
+cuDNN, the momentum buffers and the gradients' memory; as in every eager
+step, cuDNN times each convolution problem there,
+:func:`maskrcnn_tpu_torch.models.layers.tuned_convolutions`), captures one
+step into a ``torch.cuda.CUDAGraph`` that reads its batch and its sampler
+draws from static device buffers, and replays it for the rest; later calls
 replay it K times. The draws are made eagerly before the replays, in the
 eager step's order, from ``state.generator``, so replayed steps sample
 what eager steps sample and the generator resumes alike. Not under data
@@ -54,8 +56,10 @@ up), ``train.draws``, ``train.step`` (an eager step), ``capture``,
 ``train.collect``; the step marks the device stages ``forward``,
 ``proposals``, ``targets``, ``heads``, ``backward`` and ``optimizer``
 (repeated stages of micro-batches summed) and counts kept proposals and
-positive mask ROIs against their slots. A chained call recaptures its
-graph when the tracing flag differs from its capture's.
+positive mask ROIs against their slots, and the convolution problems first
+seen with cuDNN's timing on and off (``conv_problems_tuned``/``_untuned``).
+A chained call recaptures its graph when the tracing flag differs from its
+capture's.
 """
 
 from __future__ import annotations
@@ -79,6 +83,7 @@ from maskrcnn_tpu_torch.models.maskrcnn import (
     pyramid_shapes,
 )
 from maskrcnn_tpu_torch.models.backbones.resnet import batch_statistics_synced
+from maskrcnn_tpu_torch.models.layers import tuned_convolutions
 from maskrcnn_tpu_torch.models.rpn import anchors_for, generate_proposals
 from maskrcnn_tpu_torch.parallel import data_parallel as dp
 from maskrcnn_tpu_torch.targets.anchor_targets import anchor_targets
@@ -350,7 +355,8 @@ def make_train_step(cfg: Config, image_size: tuple[int, int] | None = None,
                 draws = (draw(state, batch, anchors.shape[0]) if draws is None
                          else to_device(SamplerDraws(*draws), dev))
             step_count.fill_(state.step)
-            with tracing.span("train.step"), tracing.stages(dev):
+            with (tracing.span("train.step"), tracing.stages(dev),
+                  tuned_convolutions()):
                 metrics = body(state, batch, draws, anchors, step_count)
             advance(state, 1)
             return metrics
@@ -431,7 +437,8 @@ class GraphedStep:
         self.stream = torch.cuda.Stream(device=dev)
         self.stream.wait_stream(torch.cuda.current_stream(dev))
         with torch.cuda.stream(self.stream):
-            with tracing.span("train.step"), tracing.stages(dev):
+            with (tracing.span("train.step"), tracing.stages(dev),
+                  tuned_convolutions()):
                 self.first_metrics = body(state, batch, draws, anchors, step_count)
         self.batch = _map(torch.clone, batch)
         self.draws = SamplerDraws(*(x.clone() for x in draws))

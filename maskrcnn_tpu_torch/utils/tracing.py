@@ -22,7 +22,8 @@ default and turned on in code (:func:`enable`, :func:`disable`).
 - **Work counters** (:func:`count`): ``tensor.sum()`` (or a host number)
   added into an int64 slot of a buffer on the tensor's device, with no
   wait for the device; under capture the addition becomes part of the
-  graph. Read once, by :func:`summary`.
+  graph. Read once, by :func:`summary`. :func:`count_first` adds 1 the
+  first time a key is seen, outside captures only.
 
 With tracing off a span, a stage mark and a count are a flag check, and a
 graph captured then holds no event node and no counter kernel: the
@@ -182,6 +183,9 @@ class Tracer:
         #   captured graphs add into them
         self.open: list[_Span] = []  # the spans and recorders open now
         self.recorders: list[Recorder] = []
+        self.seen: set = set()  # count_first's keys, kept by reset: each
+        #   marks a first of the process (a convolution problem whose engine
+        #   cuDNN chose), which a reset does not undo
         self.reset()
 
     def reset(self):
@@ -278,6 +282,19 @@ class Tracer:
         else:
             self.buffer(device)[slot].add_(int(value))
 
+    def count_first(self, name: str, key, device):
+        """Add 1 to counter ``name`` on ``device`` the first time ``key`` is
+        seen with tracing on (under whichever name it first came; a reset
+        forgets the count, not the key).
+        A sighting is the host's: none is taken while the current stream
+        captures, so no graph gains the counter's kernel."""
+        device = torch.device(device)
+        if (not self.on or key in self.seen
+                or (device.type == "cuda" and torch.cuda.is_current_stream_capturing())):
+            return
+        self.seen.add(key)
+        self.count(name, 1, device)
+
     # ----- the reader
     def summary(self) -> dict:
         """What was traced since the last reset (waits for the device):
@@ -350,5 +367,6 @@ stages = TRACER.stages
 stage = TRACER.stage
 replaying = TRACER.replaying
 count = TRACER.count
+count_first = TRACER.count_first
 reset = TRACER.reset
 summary = TRACER.summary

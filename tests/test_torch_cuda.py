@@ -1224,3 +1224,132 @@ def test_traced_chain_updates_as_the_untraced_one(cuda, monkeypatch):
     assert s["counters"]["mask_roi_slots"] == 4 * 2 * 8  # n_pos_cap 8, b2, 4 steps
     assert s["counters"]["proposal_slots"] == 4 * 2 * 64
     assert state.step == 12
+
+
+class _ConvFlags:
+    """Forward hooks on every convolution of a model: for each call, whether
+    the current stream was capturing and whether cuDNN's timing was on."""
+
+    def __init__(self, model):
+        from maskrcnn_tpu_torch.models.layers import Conv2d, ConvTranspose2d
+
+        self.calls = []
+        self.handles = [m.register_forward_hook(self.hook) for m in model.modules()
+                        if isinstance(m, (Conv2d, ConvTranspose2d))]
+
+    def hook(self, module, inputs, output):
+        self.calls.append((torch.cuda.is_current_stream_capturing(),
+                           torch.backends.cudnn.benchmark))
+
+    def remove(self):
+        for h in self.handles:
+            h.remove()
+
+
+def _fresh_tracer():
+    from maskrcnn_tpu_torch.utils import tracing
+
+    tracing.disable()
+    tracing.reset()
+    tracing.TRACER.seen.clear()
+    return tracing
+
+
+def test_tuned_request_replays_equal_eager_and_no_capture_times(cuda):
+    """cuDNN times every convolution of the warm-up (``conv_problems_tuned``
+    counts them, ``conv_problems_untuned`` nothing), the capture runs with
+    the timing off, so that it reuses the engines the warm-up chose and
+    calls no search, and each replay equals ``predict.eager`` in every
+    bit."""
+    model, predict, requests = _graph_setup(cuda, "fpn_mask")
+    tracing = _fresh_tracer()
+    flags = _ConvFlags(model)
+    try:
+        tracing.enable()
+        for req in requests:
+            _same(predict(*req), predict.eager(*req))
+        counters = tracing.summary()["counters"]
+    finally:
+        flags.remove()
+        tracing.disable()
+        tracing.reset()
+    captured = [on for capturing, on in flags.calls if capturing]
+    eager = [on for capturing, on in flags.calls if not capturing]
+    assert captured and not any(captured)
+    assert eager and all(eager)
+    assert counters["conv_problems_tuned"] > 0 and "conv_problems_untuned" not in counters
+    assert torch.backends.cudnn.benchmark is False
+
+
+def test_tuned_chain_times_its_eager_step_and_not_its_capture(cuda):
+    """The chain's eager step runs its convolutions with cuDNN's timing on
+    (forward, and the backward's dgrad and wgrad inside the same scope), the
+    capture with it off; every problem counts as tuned."""
+    torch.backends.cudnn.allow_tf32 = False
+    cfg = _chain_cfg()
+    data = SyntheticDetectionData(cfg)
+    raw = [data.batch(i) for i in range(4)]
+    stacked = type(raw[0])(*(None if x[0] is None else np.stack(x)
+                             for x in zip(*raw)))
+    state = create_train_state(cfg, MaskRCNN(cfg, seed=0), 1)
+    tracing = _fresh_tracer()
+    flags = _ConvFlags(state.model)
+    try:
+        tracing.enable()
+        metrics = make_train_step(cfg, chain=4)(state, stacked)
+        counters = tracing.summary()["counters"]
+    finally:
+        flags.remove()
+        tracing.disable()
+        tracing.reset()
+    captured = [on for capturing, on in flags.calls if capturing]
+    eager = [on for capturing, on in flags.calls if not capturing]
+    assert captured and not any(captured)
+    assert eager and all(eager)
+    assert counters["conv_problems_tuned"] > 0 and "conv_problems_untuned" not in counters
+    assert bool(torch.isfinite(metrics["loss"]).all())
+    assert torch.backends.cudnn.benchmark is False
+
+
+def _conv_error(dev, allow_tf32):
+    """A 3×3 float32 convolution at a backbone's size (b2, 256 channels,
+    100×128, channels-last; 30 GFLOP a pass) and its input and weight
+    gradients, timed by cuDNN, against the same in float64: the largest
+    relative error of the three, each over its own norm."""
+    from maskrcnn_tpu_torch.models.layers import tuned_convolutions
+
+    g = torch.Generator(device=dev).manual_seed(0)
+    x = torch.randn(2, 256, 100, 128, device=dev, generator=g).contiguous(
+        memory_format=torch.channels_last)
+    w = (torch.randn(256, 256, 3, 3, device=dev, generator=g) / 48).contiguous(
+        memory_format=torch.channels_last)
+    dy = torch.randn(2, 256, 100, 128, device=dev, generator=g).contiguous(
+        memory_format=torch.channels_last)
+
+    def run(x, w, dy):
+        x, w = x.detach().requires_grad_(), w.detach().requires_grad_()
+        y = torch.nn.functional.conv2d(x, w, padding=1)
+        return (y, *torch.autograd.grad(y, (x, w), dy))
+
+    before = torch.backends.cudnn.allow_tf32
+    torch.backends.cudnn.allow_tf32 = allow_tf32
+    try:
+        with tuned_convolutions():
+            got = run(x, w, dy)
+            got = run(x, w, dy)  # the cached engines
+    finally:
+        torch.backends.cudnn.allow_tf32 = before
+    want = run(x.double(), w.double(), dy.double())
+    return max(float((a.double() - b).norm() / b.norm()) for a, b in zip(got, want))
+
+
+def test_tuned_float32_convolution_stays_within_float32_error(cuda):
+    """With TF32 off, cuDNN's timed engines for a large float32 convolution,
+    its dgrad and its wgrad stay within float32's error of float64 (no
+    tensor-core engine was chosen); the same search with TF32 allowed reads
+    over a hundred times more."""
+    f32 = _conv_error(cuda, allow_tf32=False)
+    tf32 = _conv_error(cuda, allow_tf32=True)
+    print(f"relative error: float32 {f32:.3g}, TF32 allowed {tf32:.3g}")
+    assert f32 < 1e-5
+    assert tf32 > 1e-4
